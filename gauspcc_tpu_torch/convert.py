@@ -1,0 +1,72 @@
+"""Carry a HAC state from the JAX package into the port.
+
+The JAX package saves a pytree as flat "a/b/c" keys
+(gauspcc_tpu/utils/checkpoint.py:17-33, `save_pytree`), e.g.
+"nets/mlp_color/fc0/w". `state_from_numpy` takes those keys, or the same
+tree as nested dicts of numpy arrays, and returns the port's state. Dense
+weights are stored [in, out] there and [out, in] in `nn.Linear`, so they
+are transposed; the tables keep their (xyz, xy, xz, yz) layout.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from gauspcc_tpu_torch.device import resolve
+from gauspcc_tpu_torch.fields.hashgrid import TABLE_NAMES
+from gauspcc_tpu_torch.models.hac import model as hac
+
+ANCHOR_FIELDS = ("anchor", "offset", "mask", "anchor_feat", "scaling",
+                 "rotation", "opacity")
+MLP_NAMES = ("mlp_opacity", "mlp_cov", "mlp_color", "mlp_grid", "mlp_deform")
+
+
+def flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested dicts -> {"a/b/c": array}, the keys `save_pytree` writes."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            flat.update(flatten(v, key + "/"))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def state_from_numpy(tree: Mapping, cfg: hac.HACConfig,
+                     device="cuda") -> hac.State:
+    """The port's HAC state from a JAX HAC state given as numpy arrays."""
+    dev = resolve(device)
+    flat = flatten(tree)
+
+    def get(key: str, shape=None) -> torch.Tensor:
+        if key not in flat:
+            raise KeyError(f"state is missing {key}")
+        arr = flat[key]
+        if shape is not None and tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(shape)}")
+        return torch.tensor(arr, device=dev)
+
+    nets = hac.HACNets(cfg)
+    with torch.no_grad():
+        for name in TABLE_NAMES:
+            p = getattr(nets.tables, name)
+            p.copy_(get(f"nets/tables/{name}", p.shape))
+        for name in MLP_NAMES:
+            mlp = getattr(nets, name)
+            for fc_name in ("fc0", "fc1"):
+                fc = getattr(mlp, fc_name)
+                w = get(f"nets/{name}/{fc_name}/w", fc.weight.shape[::-1])
+                fc.weight.copy_(w.T)
+                fc.bias.copy_(get(f"nets/{name}/{fc_name}/b", fc.bias.shape))
+    return {
+        "anchors": {f: get(f"anchors/{f}").to(torch.float32)
+                    for f in ANCHOR_FIELDS},
+        "valid": get("valid").to(torch.bool),
+        "nets": nets.to(dev),
+        "x_bound_min": get("x_bound_min", (1, 3)).to(torch.float32),
+        "x_bound_max": get("x_bound_max", (1, 3)).to(torch.float32),
+    }

@@ -1,0 +1,75 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
+`nvcc` for Hopper (`sm_90a`) into `build/lib<name>-<hash>.so`, then loaded
+with `ctypes`. The build runs at first use, in the process that needs the
+kernel, and again only when the source's content hash changes. Nothing
+here includes PyTorch's headers, so a build takes seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class BuiltLibrary:
+    """A loaded kernel library with what its build reported."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, seconds: float,
+                 log: str):
+        self.lib = lib
+        self.path = path
+        self.seconds = seconds  # 0.0 when an existing build was reused
+        self.log = log
+
+
+_loaded: dict[str, BuiltLibrary] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the GPU (set CUDA_HOME or PATH)")
+
+
+def load(name: str) -> BuiltLibrary:
+    """Compile (if needed) and load `csrc/<name>.cu`."""
+    if name in _loaded:
+        return _loaded[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {src} "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+    built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
+    _loaded[name] = built
+    return built
