@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (`gauspcc_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline FILE]
 
 Phases, each printed with its wall time; any failure ends the run with a
 non-zero exit and no result line:
@@ -19,7 +19,14 @@ non-zero exit and no result line:
           kernel and the plain version and compared; then each stage of a
           view is timed alone, and one whole view by wall clock, by CUDA
           events, for its host syncs and under torch.profiler (device busy
-          time, idle share, longest kernels)
+          time, idle share, longest kernels). At the frame's lists it also
+          prints the kernel's launch shape, the per-tile load, the SFU's
+          exp term beside the bound, and the device time of each of the
+          two kernels a call launches (order_kernel, blend_kernel) under
+          torch.profiler; with --baseline FILE, an earlier tile_blend.cu
+          with the one-block-per-tile C interface (tile_blend_forward: 7
+          pointers, 5 ints, out, stream) is built, checked and timed beside
+          the kernel, in turns (baseline, kernel, kernel, baseline)
   reference  the whole slice at small widths on a 64x64 scene, on the card
           and through the port's CPU path, compared
 
@@ -30,6 +37,8 @@ except the kernel build under gauspcc_tpu_torch/build/ (gitignored).
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -62,6 +71,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # alpha >= 1/255, blending it (weight, 3 FMAs, transmittance, test)
 EVAL_OPS_PER_ENTRY = 15
 BLEND_OPS_PER_ENTRY = 10
+# Hopper's SFU: 16 exp a clock per SM (one per evaluated pixel-entry)
+SFU_EXP_PER_CLOCK = 16
+# a delay kernel's length: the host enqueues a timed run behind it
+DELAY_CYCLES = 50_000_000
 # reference phase: small widths (as the CPU parity tests use) on a 64x64
 # scene. GT renders (no quantisation) must agree to the kernel's tolerance
 # plus REF_ATOL of float32 rounding in project; HAC renders pass through the
@@ -107,6 +120,34 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, reps: int) -> tuple[float, float]:
+    """(device ms, host ms) per run of fn() over `reps` back-to-back runs
+    after one warm-up. The runs are enqueued behind a delay kernel, so the
+    card runs them without gaps however long the host takes to enqueue
+    each (for a short kernel `cuda_ms` measures the host's rate of
+    enqueueing); host ms is that enqueueing, by wall clock. The delay
+    doubles until the card is still in it when the last run is enqueued."""
+    fn()
+    torch.cuda.synchronize()
+    delay = DELAY_CYCLES
+    for _ in range(6):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(delay)
+        e0.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        e1.record()
+        covered = not e0.query()
+        e1.synchronize()
+        if covered:
+            return e0.elapsed_time(e1) / reps, host
+        delay *= 2
+    raise RuntimeError("the delay kernel never covered the host's enqueueing")
 
 
 def wall_ms(fn, reps: int) -> list[float]:
@@ -227,19 +268,32 @@ def random_tiles(gen: torch.Generator, device, tiles_x: int, tiles_y: int,
             shuffled(colors), bg.to(device))
 
 
-def entries_evaluated(tile_start, pair_gauss, mean2d, conic, opacity, *,
-                      tiles_x: int, max_k: int) -> tuple[int, int]:
-    """(evaluated, blended) pixel-entries of the blend on these inputs: for
-    each pixel, the entries of its tile (at most max_k) whose T_before is
-    still at or above 1e-4, and of those the ones with alpha >= 1/255,
-    which are blended. This is the data-dependent work its bound counts."""
-    evaluated = blended = 0
+def entries_per_tile(tile_start, pair_gauss, mean2d, conic, opacity, *,
+                     tiles_x: int, max_k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(evaluated [T], blended [T]) pixel-entries of each tile's blend on
+    these inputs: for each pixel, the entries of its tile (at most max_k)
+    whose T_before is still at or above 1e-4, and of those the ones with
+    alpha >= 1/255, which are blended."""
+    evaluated, blended = [], []
     for _, _, alpha, t_before, _, _ in tile_blend._alpha_chunks(
             tile_start, pair_gauss, mean2d, conic, opacity, tiles_x, max_k):
         live = t_before >= tile_blend.T_MIN
-        evaluated += int(live.sum())
-        blended += int((live & (alpha > 0)).sum())
-    return evaluated, blended
+        evaluated.append(live.sum((1, 2)))
+        blended.append((live & (alpha > 0)).sum((1, 2)))
+    empty = torch.zeros(0, dtype=torch.long, device=mean2d.device)
+    return torch.cat([empty, *evaluated]), torch.cat([empty, *blended])
+
+
+def entries_evaluated(tile_start, pair_gauss, mean2d, conic, opacity, *,
+                      tiles_x: int, max_k: int) -> tuple[int, int]:
+    """(evaluated, blended) pixel-entries of the whole blend on these
+    inputs (`entries_per_tile`, summed): the data-dependent work its bound
+    counts."""
+    evaluated, blended = entries_per_tile(
+        tile_start, pair_gauss, mean2d, conic, opacity, tiles_x=tiles_x,
+        max_k=max_k)
+    return int(evaluated.sum()), int(blended.sum())
 
 
 def blend_bound(tile_start, pair_gauss, mean2d, conic, opacity, *, tiles_x,
@@ -271,7 +325,38 @@ def blend_bound(tile_start, pair_gauss, mean2d, conic, opacity, *, tiles_x,
     return bytes_ms, "bytes", detail
 
 
+def baseline_launcher(path: Path, frame, kw):
+    """fn() -> image of an earlier tile_blend.cu (one block per tile, C
+    interface tile_blend_forward(7 pointers, 5 ints, out, stream)) on the
+    frame's lists."""
+    built = native.load_source(path)
+    log(f"  baseline {path}: nvcc {built.seconds:.3f} s")
+    for line in built.log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  baseline ptxas: {line.strip()}")
+    fn = built.lib.tile_blend_forward
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    args = [t.contiguous() for t in frame]
+    n_tiles = args[0].shape[0] - 1
+
+    def run():
+        out = torch.empty((3, kw["height"], kw["width"]), device=args[0].device)
+        rc = fn(*[t.data_ptr() for t in args], n_tiles, kw["tiles_x"],
+                kw["height"], kw["width"], kw["max_k"], out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline launch failed: CUDA error {rc}")
+        return out
+    return run
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline", type=Path, default=None,
+                        help="an earlier tile_blend.cu to time beside the kernel")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -287,6 +372,13 @@ def main() -> int:
             capture_output=True, text=True, check=True, timeout=60
         ).stdout.strip().splitlines()[0]
         log(smi)
+        max_sm_mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60
+        ).stdout.split()[0])
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+        log(f"  {n_sms} SMs, clocks.max.sm {max_sm_mhz:g} MHz")
         log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.device_count()} device(s)")
 
@@ -377,11 +469,56 @@ def main() -> int:
         log(f"  frame: {int(proj.radius.gt(0).sum())} Gaussians on screen, "
             f"{int(counts.sum())} pairs, {int(counts.gt(rcfg.max_gaussians_per_tile).sum())} "
             f"of {rcfg.n_tiles} tiles over K")
-        kernel_ms = cuda_ms(lambda: tile_blend.blend_tiles(*frame, **kw), 20)
+        shape = tile_blend.launch_shape(rcfg.n_tiles)
+        log(f"  launch: {shape['blocks']} blocks x {shape['threads']} threads, "
+            f"{shape['pix_per_thread']} pixels per thread, "
+            f"{shape['shared_bytes']} B static shared memory, "
+            f"{shape['blocks_per_sm']} resident blocks per SM, "
+            f"{shape['registers']} registers")
+        kernel_ms, host_ms = device_ms(
+            lambda: tile_blend.blend_tiles(*frame, **kw), 20)
+        events_ms = cuda_ms(lambda: tile_blend.blend_tiles(*frame, **kw), 20)
         plain_ms = cuda_ms(lambda: tile_blend.blend_tiles_reference(*frame, **kw), 3)
         bound_ms, bound_by, detail = blend_bound(*frame[:5], **kw)
-        log(f"  tile_blend at the frame's shapes: kernel {kernel_ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {detail})")
+        log(f"  tile_blend at the frame's shapes: kernel {kernel_ms:.4f} ms "
+            f"(device time, behind a delay; host enqueue {host_ms:.4f} ms a "
+            f"call; {events_ms:.4f} ms by CUDA events over 20 back-to-back "
+            f"calls), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {detail})")
+        per_tile, _ = entries_per_tile(*frame[:5], tiles_x=rcfg.tiles_x,
+                                       max_k=kw["max_k"])
+        mean_load = float(per_tile.double().mean())
+        log(f"  per-tile load: largest {int(per_tile.max())}, mean "
+            f"{mean_load:.1f} evaluated pixel-entries per tile (largest / "
+            f"mean {int(per_tile.max()) / max(mean_load, 1e-9):.3f}), "
+            f"{int((per_tile == per_tile.max()).sum())} tiles at the largest")
+        sfu_ms = int(per_tile.sum()) / (SFU_EXP_PER_CLOCK * n_sms
+                                        * max_sm_mhz * 1e6) * 1e3
+        log(f"  SFU term beside the bound: {int(per_tile.sum())} exps at "
+            f"{SFU_EXP_PER_CLOCK} a clock per SM x {n_sms} SMs at "
+            f"{max_sm_mhz:g} MHz = {sfu_ms:.4f} ms")
+        # the two kernels of a call, each alone, by the profiler's device
+        # times over 20 calls
+        _, _, top = device_profile(
+            lambda: [tile_blend.blend_tiles(*frame, **kw) for _ in range(20)])
+        for part in ("order_kernel", "blend_kernel"):
+            hit = [(n, ms) for name, n, ms in top if part in name]
+            log(f"  {part}: " + (f"{hit[0][1] / hit[0][0]:.4f} ms a launch "
+                                 f"(torch.profiler, {hit[0][0]} launches)"
+                                 if hit else "not measured (no device time "
+                                 "in the profile)"))
+        if opts.baseline is not None:
+            base = baseline_launcher(opts.baseline, frame, kw)
+            check_close("baseline, frame vs plain", base(), want, rtol, atol)
+            turns = []
+            for who in ("baseline", "kernel", "kernel", "baseline"):
+                fn = base if who == "baseline" else (
+                    lambda: tile_blend.blend_tiles(*frame, **kw))
+                ms, host = device_ms(fn, 20)
+                turns.append(ms)
+                log(f"  turn {len(turns)}: {who} {ms:.4f} ms (host {host:.4f} ms)")
+            log(f"  baseline {(turns[0] + turns[3]) / 2:.4f} ms, kernel "
+                f"{(turns[1] + turns[2]) / 2:.4f} ms (means of the turns)")
         with torch.no_grad():
             stages = {
                 "prefilter": lambda: hac_render.prefilter_voxel(

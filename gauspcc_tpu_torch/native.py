@@ -51,11 +51,19 @@ def _nvcc() -> str:
 
 def load(name: str) -> BuiltLibrary:
     """Compile (if needed) and load `csrc/<name>.cu`."""
-    if name in _loaded:
-        return _loaded[name]
-    src = CSRC / f"{name}.cu"
+    return load_source(CSRC / f"{name}.cu")
+
+
+def load_source(src: Path) -> BuiltLibrary:
+    """Compile (if needed) and load the CUDA source `src`. A wrapper calls
+    this on every launch, so a loaded library is found by the path as
+    given, without touching the file system."""
+    key = str(src)
+    if key in _loaded:
+        return _loaded[key]
+    src = Path(src)
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = BUILD_DIR / f"lib{src.stem}-{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -71,5 +79,5 @@ def load(name: str) -> BuiltLibrary:
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, out)
     built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
-    _loaded[name] = built
+    _loaded[key] = built
     return built

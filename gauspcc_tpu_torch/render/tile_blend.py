@@ -26,9 +26,12 @@ PIX = TILE * TILE
 ALPHA_MIN = 1.0 / 255.0
 T_MIN = 1e-4
 _REF_TILE_CHUNK = 64  # tiles per step of the plain version: bounds its [C, 256, K] temporaries
+ORDER_BUCKETS = 64  # list-length buckets of the kernel's tile schedule
+SCHED_SM_IDS = 1024  # per-SM rank counters in the schedule's scratch
 
-# Number of kernel launches made by `blend_tiles`. Callers reset it to 0 to
-# count the launches of one run.
+# Number of kernel launches made by `blend_tiles`: one per call of the C
+# entry, which launches the schedule's order_kernel and then blend_kernel.
+# Callers reset it to 0 to count the launches of one run.
 launches = 0
 
 
@@ -75,14 +78,57 @@ def _check_inputs(tile_start, pair_gauss, mean2d, conic, opacity, colors, bg,
     return n_tiles
 
 
+def schedule_words(n_tiles: int) -> int:
+    """int32 words of the kernel's schedule scratch for `n_tiles` tiles:
+    the counter of the sorted walk, the tiles longest first, each tile's
+    claim, and the per-SM rank counters."""
+    return 1 + 2 * n_tiles + SCHED_SM_IDS
+
+
 def _library():
-    built = native.load("tile_blend")
-    fn = built.lib.tile_blend_forward
-    if fn.argtypes is None:  # pointers must not go through as 32-bit ints
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    lib = native.load("tile_blend").lib
+    if lib.tile_blend_forward.argtypes is None:
+        # every pointer and the stream as c_void_p: ctypes would otherwise
+        # pass them as 32-bit ints and cut them
+        lib.tile_blend_forward.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+        lib.tile_blend_forward.restype = ctypes.c_int
+        lib.tile_blend_launch_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.tile_blend_launch_shape.restype = ctypes.c_int
+    return lib
+
+
+def launch_shape(n_tiles: int) -> dict:
+    """The blend launch on the current card: blocks, threads, pixels per
+    thread, static shared bytes, resident blocks per SM and registers per
+    thread."""
+    shape = (ctypes.c_int * 6)()
+    rc = _library().tile_blend_launch_shape(n_tiles, ctypes.addressof(shape))
+    if rc != 0:
+        raise RuntimeError(f"tile_blend launch shape failed: CUDA error {rc}")
+    return dict(zip(("blocks", "threads", "pix_per_thread", "shared_bytes",
+                     "blocks_per_sm", "registers"), shape))
+
+
+def _launch(args, sched: torch.Tensor, *, tiles_x: int, height: int,
+            width: int, max_k: int) -> torch.Tensor:
+    """One call of the C entry on CUDA tensors (the schedule's order, then
+    the blend) -> image [3, H, W]; raises if a launch is refused. `sched`
+    is the schedule's scratch, int32 [schedule_words(T)]. Counts no
+    launch: `blend_tiles` does."""
+    n_tiles = args[0].shape[0] - 1
+    args = [t.contiguous() for t in args]
+    dev = args[2].device
+    out = torch.empty((3, height, width), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tile_blend_forward(
+            *[t.data_ptr() for t in args], n_tiles, tiles_x, height, width,
+            max_k, sched.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"tile_blend kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def blend_tiles(tile_start: torch.Tensor, pair_gauss: torch.Tensor,
@@ -96,27 +142,31 @@ def blend_tiles(tile_start: torch.Tensor, pair_gauss: torch.Tensor,
     lists of `raster._build_tile_lists`; mean2d [N, 2], conic [N, 3],
     opacity [N], colors [N, 3] and bg [3] are float32."""
     global launches
+    args = (tile_start, pair_gauss, mean2d, conic, opacity, colors, bg)
+    kw = dict(tiles_x=tiles_x, height=height, width=width, max_k=max_k)
     if mean2d.device.type == "cpu":
-        return blend_tiles_reference(
-            tile_start, pair_gauss, mean2d, conic, opacity, colors, bg,
-            tiles_x=tiles_x, height=height, width=width, max_k=max_k)
+        return blend_tiles_reference(*args, **kw)
     if mean2d.device.type != "cuda":
         raise ValueError(f"tile_blend runs on CUDA or CPU, not {mean2d.device}")
-    n_tiles = _check_inputs(tile_start, pair_gauss, mean2d, conic, opacity,
-                            colors, bg, tiles_x, height, width, max_k)
-    args = [t.contiguous() for t in
-            (tile_start, pair_gauss, mean2d, conic, opacity, colors, bg)]
-    fn = _library()
-    out = torch.empty((3, height, width), dtype=torch.float32,
-                      device=mean2d.device)
-    with torch.cuda.device(mean2d.device):
-        stream = torch.cuda.current_stream(mean2d.device).cuda_stream
-        rc = fn(*[t.data_ptr() for t in args], n_tiles, tiles_x, height, width,
-                max_k, out.data_ptr(), stream)
+    n_tiles = _check_inputs(*args, tiles_x, height, width, max_k)
+    sched = torch.empty(schedule_words(n_tiles), dtype=torch.int32,
+                        device=mean2d.device)
+    out = _launch(args, sched, **kw)
     launches += 1
-    if rc != 0:
-        raise RuntimeError(f"tile_blend kernel launch failed: CUDA error {rc}")
     return out
+
+
+def tile_order_reference(tile_start: torch.Tensor, max_k: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel's tile schedule: (bucket [T], order [T]).
+    A tile's bucket grows with min(count, max_k) (0 for an empty tile, 1..63
+    otherwise); the kernel blends the tiles in descending bucket order, in
+    any order within a bucket. Here the order within a bucket is by tile."""
+    length = (tile_start[1:] - tile_start[:-1]).clamp_max(max_k).long()
+    bucket = torch.where(length > 0,
+                         1 + (length - 1) * (ORDER_BUCKETS - 1) // max_k, 0)
+    order = torch.sort(-bucket, stable=True).indices
+    return bucket, order
 
 
 def tiles_to_image(tiles: torch.Tensor, tiles_x: int, height: int,

@@ -5,6 +5,9 @@ in interpret mode on the same tile lists, at rtol 2e-4 / atol 2e-5 (the
 tolerance of the JAX package's own Pallas test). The CUDA kernel itself
 runs only on the card: see tests/test_torch_cuda.py."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -141,3 +144,59 @@ def test_entries_evaluated_counts_until_saturation():
     # a T within rounding of 1e-4 may differ
     assert abs(evaluated - want_eval) <= 2
     assert abs(blended - want_blend) <= 2
+
+
+def test_entries_per_tile_sum_to_entries_evaluated():
+    args = _tile_lists(9, 3, 2, 40)
+    ev_tile, bl_tile = chip_smoke.entries_per_tile(*args[:5], tiles_x=3,
+                                                   max_k=40)
+    assert ev_tile.shape == bl_tile.shape == (6,)
+    assert int(ev_tile[0]) == 0  # the empty tile
+    assert bool((bl_tile <= ev_tile).all())
+    assert (int(ev_tile.sum()), int(bl_tile.sum())) == chip_smoke.entries_evaluated(
+        *args[:5], tiles_x=3, max_k=40)
+
+
+def test_tile_order_reference_is_longest_first():
+    """The plain version of the kernel's schedule: a permutation of the
+    tiles by descending bucket of min(count, K); bucket 0 only for empty
+    tiles, the top bucket for a full one, buckets growing with length."""
+    rng = np.random.default_rng(11)
+    k = 300
+    counts = rng.integers(0, 2 * k, 200)
+    counts[:3] = [0, k, 1]
+    tile_start = torch.from_numpy(
+        np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    bucket, order = tile_blend.tile_order_reference(tile_start, k)
+    length = torch.from_numpy(np.minimum(counts, k))
+    assert torch.equal(torch.sort(order).values, torch.arange(200))
+    assert bool((bucket[order][:-1] >= bucket[order][1:]).all())
+    assert torch.equal(bucket == 0, length == 0)
+    assert int(bucket[1]) == tile_blend.ORDER_BUCKETS - 1 and int(bucket[2]) == 1
+    by_len = bucket[torch.argsort(length)]
+    assert bool((by_len[:-1] <= by_len[1:]).all())
+
+
+@pytest.mark.parametrize("n_tiles", [0, 1, 1024])
+def test_schedule_words_hold_every_part_of_the_schedule(n_tiles):
+    """The counter, the sorted tiles, a claim per tile, and a rank counter
+    for each SM id the kernel deals to (it clamps %nsmid to them)."""
+    words = tile_blend.schedule_words(n_tiles)
+    assert words == 1 + n_tiles + n_tiles + tile_blend.SCHED_SM_IDS
+    assert tile_blend.SCHED_SM_IDS >= 132  # an H100 SXM's SMs
+
+
+def test_wrapper_constants_match_the_kernel_source():
+    """The wrapper sizes the schedule's scratch, and its plain version
+    buckets the lists, with the kernel's own constants."""
+    src = (Path(tile_blend.__file__).parents[1] / "csrc" / "tile_blend.cu"
+           ).read_text()
+
+    def constant(name):
+        found = re.findall(rf"constexpr int {name} = (\d+);", src)
+        assert len(found) == 1, name
+        return int(found[0])
+
+    assert constant("kMaxSmIds") == tile_blend.SCHED_SM_IDS
+    assert constant("kBuckets") == tile_blend.ORDER_BUCKETS
+    assert constant("kTile") == tile_blend.TILE
