@@ -1,13 +1,19 @@
-"""Procedural soak scene (own copy of gauspcc_tpu/cli/soak.py:37-130,
-"textured" kind): clustered coloured Gaussians rendered from orbit cameras
-with the port's rasterizer as ground truth, plus seed points for the anchors.
+"""Procedural soak scene and its training run (own copy of
+gauspcc_tpu/cli/soak.py:37-130, "textured" kind, and :188-217): clustered
+coloured Gaussians rendered from orbit cameras with the port's rasterizer as
+ground truth, plus seed points for the anchors; `train` trains HAC on it.
 
 The numpy RNG calls run in the same order as the JAX package's
 build_scene, so one seed gives the same Gaussians, cameras and seed points
 in both.
+
+    python -m gauspcc_tpu_torch.cli.soak --iters 600 [--device cuda]
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -86,3 +92,38 @@ def build_scene(rng: np.random.Generator, hw: int, n_gt: int, n_cams: int,
     test = [c for i, c in enumerate(cams) if i % hold == 0]
     train = [c for i, c in enumerate(cams) if i % hold != 0]
     return SyntheticScene(train, test, seed_pts.astype(np.float32), extent)
+
+
+def compressed_phase_schedule(iters: int) -> Callable[[int], int]:
+    """The phase schedule of a soak shorter than 30,000 steps, so that it
+    still reaches the rate phase: the clean phase floored at the reference's
+    own absolute gate (3,000 steps, or half the run), then phase 1 to a third
+    of the run (at least a third of what is left), then phase 2."""
+    b0 = max(iters // 10, min(3000, iters // 2))
+    b1 = max(iters // 3, b0 + (iters - b0) // 3)
+    return lambda it: 0 if it <= b0 else (1 if it <= b1 else 2)
+
+
+def train(scene: SyntheticScene, iters: int, *, voxel_size: float = 0.01,
+          lmbda: float = 1e-3, white_background: bool = True, seed: int = 0,
+          log=print, log_every: int = 200, device="cuda", **opt_overrides):
+    """Train HAC at the full HACConfig width on a soak scene, with the
+    soak's OptConfig (update_until at half the run, at most 15,000) and,
+    below 30,000 steps, its compressed phase schedule. `opt_overrides`
+    replace OptConfig fields. Returns (state, cfg, opt, results), results
+    as train_scene's."""
+    from gauspcc_tpu_torch.models.hac import model as hac
+    from gauspcc_tpu_torch.models.hac import pipeline
+    from gauspcc_tpu_torch.models.hac import train as hac_train
+
+    cfg = hac.HACConfig(voxel_size=voxel_size)
+    opt = dataclasses.replace(hac_train.OptConfig(
+        iterations=iters, lmbda=lmbda, update_until=min(15_000, iters // 2)),
+        **opt_overrides)
+    phase_of_step = (compressed_phase_schedule(iters) if iters < 30_000
+                     else hac_train.phase_of_step)
+    state, results = pipeline.train_scene(
+        scene, cfg, opt, seed=seed, log_every=log_every,
+        white_background=white_background, phase_of_step=phase_of_step,
+        log=log, device=device)
+    return state, cfg, opt, results

@@ -1,12 +1,17 @@
-"""Straight-through quantizers (counterpart of gauspcc_tpu/core/quant.py:20-100).
+"""Straight-through quantizers and the train-time noise proxy (counterpart
+of gauspcc_tpu/core/quant.py:15-100).
 
-`torch.round` rounds half to even, as `jnp.round` does.
+`torch.round` rounds half to even, as `jnp.round` does. torch cannot draw
+`jax.random`'s numbers, so `uniform_noise_quant` takes its uniform draw as
+an argument (the tests hand both packages the same draw), or draws it from
+an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
 
 import torch
 
+USE_CLAMP = True
 CLAMP_STEPS = 15_000
 
 
@@ -48,3 +53,14 @@ def ste_multistep(x: torch.Tensor, q: torch.Tensor,
 def ste_round(x: torch.Tensor) -> torch.Tensor:
     """round(x) with identity gradient."""
     return x + (torch.round(x) - x).detach()
+
+
+def uniform_noise_quant(x: torch.Tensor, q, u: torch.Tensor | None = None,
+                        generator: torch.Generator | None = None
+                        ) -> torch.Tensor:
+    """Train-time additive-uniform quantization proxy: x + (u - 0.5) q, with
+    u ~ U[0, 1) shaped like x: `u` if given, else drawn from `generator`."""
+    if u is None:
+        u = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                       device=x.device)
+    return x + (u - 0.5) * q

@@ -1,4 +1,4 @@
-"""HAC scene model, eval path (counterpart of gauspcc_tpu/models/hac/model.py).
+"""HAC scene model (counterpart of gauspcc_tpu/models/hac/model.py).
 
 Scaffold-GS anchors in fixed-capacity buffers with a `valid` mask, the
 hash-grid context and its MLPs. The state is a dict laid out like the JAX
@@ -8,9 +8,13 @@ package's pytree:
                  "rotation", "opacity"}, "valid": bool [cap],
      "nets": HACNets, "x_bound_min": [1, 3], "x_bound_max": [1, 3]}
 
-Only the eval branches of `generate_neural_gaussians` are here (the
-STE-quantised render and the decoded render); the training branches come
-with the training slice.
+`generate_neural_gaussians` has the eval branches (the STE-quantised render
+and the decoded render) and the training branches: phase 1's base-Q noise,
+and phase 2's context-adaptive noise with the rate terms, as the JAX package
+runs them with its phase-2 bisection knobs (P2_Q_FIXED,
+P2_NOISE_FEAT_ONLY, model.py:36-37) off, their default. torch cannot draw
+`jax.random`'s noise, so the uniform draws can be passed in (`noise`), as
+the tests do; otherwise they come from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -21,8 +25,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from gauspcc_tpu_torch.core import entropy
 from gauspcc_tpu_torch.core.nn import MLP2
-from gauspcc_tpu_torch.core.quant import ste_multistep, ste_round
+from gauspcc_tpu_torch.core.quant import (ste_binary, ste_multistep, ste_round,
+                                          uniform_noise_quant)
 from gauspcc_tpu_torch.device import resolve
 from gauspcc_tpu_torch.fields import hashgrid
 
@@ -30,11 +36,14 @@ State = dict[str, Any]
 
 
 class HACConfig(NamedTuple):
-    """The eval path's fields of the JAX package's HACConfig, same defaults."""
+    """The JAX package's HACConfig, same fields and defaults."""
 
     feat_dim: int = 50
     n_offsets: int = 10
     voxel_size: float = 0.001
+    update_depth: int = 3
+    update_init_factor: int = 16
+    update_hierachy_factor: int = 4
     n_features_per_level: int = 2
     log2_hashmap_size: int = 19
     log2_hashmap_size_2d: int = 17
@@ -150,6 +159,40 @@ def init_state(cfg: HACConfig, points: np.ndarray, rng: np.random.Generator,
     }
 
 
+TRAINABLE_ANCHOR_FIELDS = ("offset", "mask", "anchor_feat", "scaling")
+# anchor positions train at lr 0 in the reference and rotation/opacity have
+# no gradient there, so all three are frozen
+FROZEN_ANCHOR_FIELDS = ("anchor", "rotation", "opacity")
+
+
+def split_state(state: State):
+    """(trainable params, rest); merge_state inverts. The nets (an
+    nn.Module) are trainable as a whole."""
+    params = {
+        "anchors": {k: state["anchors"][k] for k in TRAINABLE_ANCHOR_FIELDS},
+        "nets": state["nets"],
+    }
+    rest = {
+        "anchors": {k: state["anchors"][k] for k in FROZEN_ANCHOR_FIELDS},
+        "valid": state["valid"],
+        "x_bound_min": state["x_bound_min"],
+        "x_bound_max": state["x_bound_max"],
+    }
+    return params, rest
+
+
+def merge_state(params, rest) -> State:
+    anchors = dict(rest["anchors"])
+    anchors.update(params["anchors"])
+    return {
+        "anchors": anchors,
+        "valid": rest["valid"],
+        "nets": params["nets"],
+        "x_bound_min": rest["x_bound_min"],
+        "x_bound_max": rest["x_bound_max"],
+    }
+
+
 def get_anchor(state: State, cfg: HACConfig, decoded: bool = False) -> torch.Tensor:
     a = state["anchors"]["anchor"]
     if decoded:
@@ -168,6 +211,17 @@ def get_mask(state: State, decoded: bool = False) -> torch.Tensor:
         return state["anchors"]["mask"]
     s = torch.sigmoid(state["anchors"]["mask"])
     return ((s > 0.01).to(torch.float32) - s).detach() + s
+
+
+def get_mask_anchor(state: State) -> torch.Tensor:
+    """Anchors with any offset's mask on, among the valid ones [cap]."""
+    return (get_mask(state).sum(1)[:, 0] > 0) & state["valid"]
+
+
+def encoding_params_flat(state: State) -> torch.Tensor:
+    """Every hash-grid embedding, in the order xyz, xy, xz, yz, through the
+    sign STE."""
+    return ste_binary(state["nets"].tables.flat())
 
 
 def update_anchor_bound(state: State) -> State:
@@ -214,6 +268,7 @@ class NeuralGaussians(NamedTuple):
     scaling: torch.Tensor  # [cap*K, 3]
     rot: torch.Tensor  # [cap*K, 4]
     valid: torch.Tensor  # [cap*K] bool (anchor visible & mask & opacity > 0)
+    neural_opacity: torch.Tensor  # [cap*K, 1] pre-clip opacity (for stats)
 
 
 def _live_means(state: State, cfg: HACConfig):
@@ -232,10 +287,20 @@ def _live_means(state: State, cfg: HACConfig):
 def generate_neural_gaussians(state: State, cfg: HACConfig,
                               camera_center: torch.Tensor,
                               visible_mask: torch.Tensor, *,
-                              decoded: bool = False) -> NeuralGaussians:
-    """Eval-time neural Gaussians. Unless `decoded`, the attributes are
-    STE-quantised through the learned context exactly as the encoder will
-    quantise them (the float eval renders what ships)."""
+                              training: bool = False, phase: int = 0,
+                              noise=None, generator: torch.Generator | None = None,
+                              decoded: bool = False):
+    """Returns (NeuralGaussians, rate terms dict or None).
+
+    visible_mask: [cap] bool from the prefilter, combined with validity.
+    Eval (not `training`): unless `decoded`, the attributes are STE-quantised
+    through the learned context exactly as the encoder will quantise them.
+    Training, by `phase`, the schedule stage the caller derives from the
+    step: 0 no quantization proxy; 1 base-Q uniform noise; 2 context-adaptive
+    noise and the rate estimate over the visible, mask-on anchors. `noise`
+    is the phase's uniform draws in [0, 1): (feat [cap, feat_dim], scaling
+    [cap, 6], offsets [cap, K, 3]), as the JAX package draws them from
+    split(key, 3); if None they are drawn from `generator`."""
     k = cfg.n_offsets
     anchors = state["anchors"]
     nets = state["nets"]
@@ -246,13 +311,33 @@ def generate_neural_gaussians(state: State, cfg: HACConfig,
     grid_offsets = anchors["offset"]
     grid_scaling = get_scaling(state, decoded)
     binary_mask = get_mask(state, decoded)  # [cap, K, 1]
-    if not decoded:
+    rate = None
+    if not training and not decoded:
         ctx = grid_mlp_split(state, cfg, calc_interp_feat(state, cfg, anchor))
         feat_mean, scaling_mean, offset_mean = _live_means(state, cfg)
         feat = ste_multistep(feat, ctx["q_feat"], feat_mean)
         grid_scaling = ste_multistep(grid_scaling, ctx["q_scaling"], scaling_mean)
         grid_offsets = ste_multistep(
             grid_offsets, ctx["q_offsets"][:, None, :], offset_mean)
+    if training and not decoded and phase in (1, 2):
+        u_feat, u_scaling, u_offsets = noise if noise is not None else (
+            None, None, None)
+        draw = dict(generator=generator)
+        if phase == 1:
+            feat = uniform_noise_quant(feat, cfg.q_feat, u_feat, **draw)
+            grid_scaling = uniform_noise_quant(grid_scaling, cfg.q_scaling,
+                                               u_scaling, **draw)
+            grid_offsets = uniform_noise_quant(grid_offsets, cfg.q_offsets,
+                                               u_offsets, **draw)
+        else:
+            ctx = grid_mlp_split(state, cfg, calc_interp_feat(state, cfg, anchor))
+            feat = uniform_noise_quant(feat, ctx["q_feat"], u_feat, **draw)
+            grid_scaling = uniform_noise_quant(
+                grid_scaling, ctx["q_scaling"], u_scaling, **draw)
+            grid_offsets = uniform_noise_quant(
+                grid_offsets, ctx["q_offsets"][:, None, :], u_offsets, **draw)
+            rate = _rate_terms(state, cfg, ctx, vis, binary_mask, feat,
+                               grid_scaling, grid_offsets)
 
     ob_view = anchor - camera_center[None, :]
     ob_dist = torch.linalg.norm(ob_view, dim=1, keepdim=True) + 1e-9
@@ -274,5 +359,40 @@ def generate_neural_gaussians(state: State, cfg: HACConfig,
     rot = scale_rot[:, 3:7] / (
         torch.linalg.norm(scale_rot[:, 3:7], dim=-1, keepdim=True) + 1e-9)
     xyz = anchor_rep + offsets * scaling_rep[:, :3]
-    return NeuralGaussians(xyz=xyz, color=color, opacity=neural_opacity,
-                           scaling=scaling, rot=rot, valid=g_valid)
+    ng = NeuralGaussians(xyz=xyz, color=color, opacity=neural_opacity,
+                         scaling=scaling, rot=rot, valid=g_valid,
+                         neural_opacity=neural_opacity)
+    return ng, rate
+
+
+def _rate_terms(state, cfg, ctx, vis, binary_mask, feat, grid_scaling,
+                grid_offsets) -> dict:
+    """Phase 2's bits per parameter over every valid, mask-on and visible
+    anchor (the reference samples 5% of them: same expectation), scaled by
+    the mask-on fraction of the visible anchors. The clamp windows' means
+    run over live rows only."""
+    k = cfg.n_offsets
+    sel = (vis & get_mask_anchor(state))[:, None].to(torch.float32)
+    feat_mean, scaling_mean, offset_mean = _live_means(state, cfg)
+    mask3 = torch.repeat_interleave(binary_mask, 3, dim=-1).reshape(-1, 3 * k)
+    bit_feat = entropy.gaussian_bits(feat, ctx["mean"], ctx["scale"],
+                                     ctx["q_feat"], x_mean=feat_mean) * sel
+    bit_scaling = entropy.gaussian_bits(
+        grid_scaling, ctx["mean_scaling"], ctx["scale_scaling"],
+        ctx["q_scaling"], x_mean=scaling_mean) * sel
+    bit_offsets = entropy.gaussian_bits(
+        grid_offsets.reshape(-1, 3 * k), ctx["mean_offsets"],
+        ctx["scale_offsets"], ctx["q_offsets"], x_mean=offset_mean
+    ) * mask3 * sel
+    n_vis = torch.clamp_min(vis.to(torch.float32).sum(), 1.0)
+    mask_anchor_rate = sel.sum() / n_vis
+    denom = torch.clamp_min(sel.sum(), 1.0)
+    rate = {
+        "bit_per_feat_param": bit_feat.sum() / (denom * cfg.feat_dim) * mask_anchor_rate,
+        "bit_per_scaling_param": bit_scaling.sum() / (denom * 6) * mask_anchor_rate,
+        "bit_per_offsets_param": bit_offsets.sum() / (denom * 3 * k) * mask_anchor_rate,
+    }
+    rate["bit_per_param"] = (
+        bit_feat.sum() + bit_scaling.sum() + bit_offsets.sum()
+    ) / (denom * (cfg.feat_dim + 6 + 3 * k)) * mask_anchor_rate
+    return rate

@@ -1,4 +1,4 @@
-"""Tile rasterizer for 3D Gaussian splats, eval path (counterpart of
+"""Tile rasterizer for 3D Gaussian splats (counterpart of
 gauspcc_tpu/render/raster.py).
 
   1. project: quaternion -> R, Sigma = R S S^T R^T, EWA Jacobian to a 2-D
@@ -7,11 +7,16 @@ gauspcc_tpu/render/raster.py).
      on its projected mean, then one stable sort of packed (tile, depth)
      keys.
   3. blend: the first K entries of every tile through the CUDA tile-blend
-     kernel (`tile_blend.py`), the port of the JAX package's Pallas branch.
+     kernel (`tile_blend.py`), the port of the JAX package's Pallas branch,
+     and its gradient through the backward kernel.
+
+Gradients flow through project by autograd and through the blend by the
+backward kernel (autograd of the plain version on the CPU); the tile lists
+are integers and carry none. An optional `means2d_extra` zero input receives
+the screen-space position gradient for the densification statistics.
 
 The D-window and the K cap drop the far tail on purpose, exactly as the
-JAX package does, so renders match it. The training blend (autodiff through
-the XLA blend) comes with the training slice.
+JAX package does, so renders match it.
 """
 
 from __future__ import annotations
@@ -192,12 +197,21 @@ def rasterize(means3d: torch.Tensor, colors: torch.Tensor,
               opacities: torch.Tensor, scales: torch.Tensor,
               rotations: torch.Tensor, viewmatrix: torch.Tensor,
               bg_color: torch.Tensor, cfg: RasterConfig,
-              valid: torch.Tensor | None = None):
-    """Eval render. Returns (image [3, H, W], radii [N])."""
+              valid: torch.Tensor | None = None,
+              means2d_extra: torch.Tensor | None = None):
+    """Render. Returns (image [3, H, W], radii [N]).
+
+    means2d_extra: optional [N, 2] zeros, added to the projected screen
+    positions for the blend only (the tile lists come from the projection),
+    so its gradient is the per-Gaussian screen-space gradient."""
     proj = project(means3d, scales, rotations, viewmatrix, cfg, valid)
-    tile_start, pair_gauss, _ = _build_tile_lists(proj, cfg)
+    mean2d = proj.mean2d
+    if means2d_extra is not None:
+        mean2d = mean2d + means2d_extra
+    with torch.no_grad():
+        tile_start, pair_gauss, _ = _build_tile_lists(proj, cfg)
     img = tile_blend.blend_tiles(
-        tile_start, pair_gauss, proj.mean2d, proj.conic, opacities.reshape(-1),
+        tile_start, pair_gauss, mean2d, proj.conic, opacities.reshape(-1),
         colors, bg_color, tiles_x=cfg.tiles_x, height=cfg.height,
         width=cfg.width, max_k=cfg.max_gaussians_per_tile)
     return img, proj.radius
@@ -216,6 +230,26 @@ def max_tile_footprint(means3d, scales, rotations, viewmatrix,
     above it renders exactly as an unbounded D."""
     proj = project(means3d, scales, rotations, viewmatrix, cfg, valid)
     return _footprints(proj, cfg).max()
+
+
+def tile_saturation(means3d, scales, rotations, viewmatrix,
+                    cfg: RasterConfig, valid=None) -> dict:
+    """Bounded-work cap diagnostics for one view: the fraction of occupied
+    tiles whose list exceeds K, the fraction of visible Gaussians whose tile
+    footprint exceeds D, and the longest list (as tensors)."""
+    proj = project(means3d, scales, rotations, viewmatrix, cfg, valid)
+    tile_start, _, _ = _build_tile_lists(proj, cfg)
+    counts = tile_start[1:] - tile_start[:-1]
+    footprint = _footprints(proj, cfg)
+    alive = proj.radius > 0
+    n_alive = torch.clamp_min(alive.sum(), 1)
+    occupied = torch.clamp_min((counts > 0).sum(), 1)
+    return {
+        "frac_tiles_over_k": (counts > cfg.max_gaussians_per_tile).sum() / occupied,
+        "frac_gauss_over_d": (alive & (footprint > cfg.max_tiles_per_gaussian)
+                              ).sum() / n_alive,
+        "max_tile_count": counts.max(),
+    }
 
 
 def visible_filter(means3d, scales, rotations, viewmatrix, cfg: RasterConfig,

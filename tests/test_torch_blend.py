@@ -200,3 +200,79 @@ def test_wrapper_constants_match_the_kernel_source():
     assert constant("kMaxSmIds") == tile_blend.SCHED_SM_IDS
     assert constant("kBuckets") == tile_blend.ORDER_BUCKETS
     assert constant("kTile") == tile_blend.TILE
+
+
+def _walk_gradients(args, grad_out, tiles_x, height, width, max_k):
+    """The backward kernel's arithmetic, per pixel in float64: the forward
+    with its early stop, then each list front to back with S_j and G = out
+    . g (csrc/tile_blend.cu, backward_records)."""
+    ts, pg = args[0].numpy(), args[1].numpy()
+    m, cn, o, c, bg = (a.numpy().astype(np.float64) for a in args[2:])
+    g = grad_out.numpy().astype(np.float64)
+    n = m.shape[0]
+    gm, gc, go, gcol = (np.zeros((n, 2)), np.zeros((n, 3)), np.zeros(n),
+                        np.zeros((n, 3)))
+    for tile in range(len(ts) - 1):
+        ids = pg[ts[tile]:ts[tile] + min(ts[tile + 1] - ts[tile], max_k)]
+        for p in range(256):
+            x = (tile % tiles_x) * 16 + p % 16
+            y = (tile // tiles_x) * 16 + p // 16
+            if x >= width or y >= height:
+                continue
+            ent = []
+            for i in ids:
+                dx, dy = x - m[i, 0], y - m[i, 1]
+                a, b, cc = cn[i]
+                power = -0.5 * (a * dx * dx + cc * dy * dy) - b * dx * dy
+                e = np.exp(min(power, 0.0))
+                alpha = min(0.99, o[i] * e)
+                ent.append((i, dx, dy, e, alpha if alpha >= 1 / 255 else 0.0))
+            t, rgb = 1.0, np.zeros(3)
+            for i, _, _, _, alpha in ent:
+                if t >= 1e-4:
+                    rgb += alpha * t * c[i]
+                    t *= 1 - alpha
+            gp = g[:, y, x]
+            big_g = (rgb + t * bg) @ gp
+            t, s = 1.0, 0.0
+            for i, dx, dy, e, alpha in ent:
+                live = t >= 1e-4
+                w = alpha * t if live else 0.0
+                s += w * (c[i] @ gp)
+                dal = (t * (c[i] @ gp) - (big_g - s) / (1 - alpha)
+                       if live and 0 < alpha < 0.99 else 0.0)
+                t = t * (1 - alpha) if live else t
+                dpow = dal * alpha if e < 1 else 0.0
+                a, b, cc = cn[i]
+                gcol[i] += w * gp
+                go[i] += dal * e
+                gm[i] += dpow * np.array([a * dx + b * dy, cc * dy + b * dx])
+                gc[i] += dpow * np.array([-0.5 * dx * dx, -dx * dy, -0.5 * dy * dy])
+    return gm, gc, go, gcol
+
+
+@pytest.mark.parametrize("saturating", [False, True])
+def test_backward_arithmetic_matches_autograd_within_gradient_tolerance(
+        saturating):
+    """The backward kernel's front-to-back gradient (emulated on the CPU:
+    the kernel itself runs only on the card) against autograd of the plain
+    version, within gradient_tolerance; with opacities near 0.99 most
+    pixels stop early, where the two differ by the T_final term the
+    tolerance derives."""
+    args = list(_tile_lists(10 + saturating, 2, 2, 24))
+    if saturating:  # wide, nearly opaque Gaussians
+        args[3] = args[3] * 0.02
+        args[4] = torch.full_like(args[4], 0.97)
+    kw = dict(tiles_x=2, height=30, width=25, max_k=24)
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(3, 30, 25)).astype(np.float32))
+    want = tile_blend.blend_backward_reference(*args, g, **kw)
+    got = _walk_gradients(args, g, **kw)
+    tol = tile_blend.gradient_tolerance(*args, g, **kw)
+    for name, a, b in zip(("mean2d", "conic", "opacity", "colors"), got, want):
+        assert np.abs(b.numpy()).max() > 0, name
+        assert (np.abs(a - b.numpy()) <= tol[name].numpy()).all(), name
+    stopped = sum(int((torch.exp(log1ma.sum(-1)) < tile_blend.T_MIN).sum())
+                  for *_, log1ma, _ in tile_blend._alpha_chunks(
+                      *args[:5], kw["tiles_x"], kw["max_k"]))
+    assert (stopped > 500) == saturating

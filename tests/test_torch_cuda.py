@@ -35,6 +35,26 @@ def test_kernel_matches_plain_version(cuda_device, max_k):
     want = tile_blend.blend_tiles_reference(*args, **kw)
     rtol, atol = tile_blend.kernel_tolerance(args[6], args[5])
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    _check_backward(args, got, **kw)
+
+
+def _check_backward(args, out, seed=0, **kw):
+    """The backward kernel against autograd of the plain version for a
+    seeded upstream gradient, within gradient_tolerance; returns its
+    gradients."""
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn((3, kw["height"], kw["width"]), generator=gen).to(args[2].device)
+    before = tile_blend.backward_launches
+    got = tile_blend.blend_tiles_backward(*args, out, g, **kw)
+    torch.cuda.synchronize()
+    assert tile_blend.backward_launches == before + 1
+    want = tile_blend.blend_backward_reference(*args, g, **kw)
+    tol = tile_blend.gradient_tolerance(*args, g, **kw)
+    for name, a, b in zip(("mean2d", "conic", "opacity", "colors"), got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        excess = ((a - b).abs() - tol[name]).max()
+        assert float(excess) <= 0.0, (name, float(excess))
+    return got
 
 
 @pytest.mark.cuda
@@ -93,6 +113,8 @@ def _lists(gen, device, tiles_x, counts, *, opacity=None, spread=32.0):
 
 
 def _check_kernel(args, **kw):
+    """The forward against the plain version, then the backward against
+    autograd of it."""
     before = tile_blend.launches
     got = tile_blend.blend_tiles(*args, **kw)
     torch.cuda.synchronize()
@@ -100,6 +122,7 @@ def _check_kernel(args, **kw):
     want = tile_blend.blend_tiles_reference(*args, **kw)
     rtol, atol = tile_blend.kernel_tolerance(args[6], args[5])
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    _check_backward(args, got, **kw)
 
 
 @pytest.mark.cuda
@@ -229,3 +252,66 @@ def test_launch_shape_is_the_persistent_grid(cuda_device):
     assert many["threads"] * many["pix_per_thread"] == tile_blend.PIX
     assert many["threads"] % tile_blend.TILE == 0
     assert many["shared_bytes"] > 0 and many["registers"] > 0
+
+
+@pytest.mark.cuda
+def test_thin_gaussians_at_the_cut_keep_and_drop_what_the_plain_version_does(
+        cuda_device):
+    """Thin Gaussians near 45 degrees, whose quadratic-form terms are about
+    10^4 where alpha lies within a few ulps of 1/255 (chip_smoke.cut_lists):
+    the fused power and the plain one differ by up to 2e-3 there, beyond a
+    fixed 1e-4 window. The forward and the backward hold against the plain
+    version."""
+    args = chip_smoke.cut_lists(cuda_device, 32, 32)
+    _check_kernel(args, tiles_x=32, height=512, width=512, max_k=4)
+
+
+@pytest.mark.cuda
+def test_backward_repeats_within_the_atomics_reordering(cuda_device):
+    """Two runs of the backward on the same inputs: the atomics add in
+    another order each time, so the sums may differ in their last bits, and
+    no more than the reordering term of gradient_tolerance allows."""
+    gen = torch.Generator().manual_seed(5)
+    args = chip_smoke.random_tiles(gen, cuda_device, 16, 16, 1024)
+    kw = dict(tiles_x=16, height=256, width=256, max_k=1024)
+    out = tile_blend.blend_tiles(*args, **kw)
+    first = _check_backward(args, out, seed=1, **kw)
+    again = _check_backward(args, out, seed=1, **kw)
+    g = torch.randn((3, 256, 256), generator=torch.Generator().manual_seed(1)
+                    ).to(cuda_device)
+    tol = tile_blend.gradient_tolerance(*args, g, **kw)
+    for name, a, b in zip(("mean2d", "conic", "opacity", "colors"), first, again):
+        assert float(((a - b).abs() - tol[name]).max()) <= 0.0, name
+
+
+@pytest.mark.cuda
+def test_rasterize_gradients_on_card_match_cpu(cuda_device):
+    """The same Gaussians through rasterize on the card (forward and
+    backward kernels) and on the CPU (autograd of the plain version): the
+    gradients of every input, and of means2d_extra, agree to the float32
+    differences of project and the blend (rtol 1e-3 of the largest)."""
+    rng = np.random.default_rng(1)
+    n = 300
+    means = (rng.random((n, 3)) * 1.4 - 0.7).astype(np.float32)
+    means[:, 2] += 3.0
+    arrays = dict(
+        means3d=means, colors=rng.random((n, 3)).astype(np.float32),
+        opacities=rng.uniform(0.2, 0.95, (n, 1)).astype(np.float32),
+        scales=rng.uniform(0.02, 0.1, (n, 3)).astype(np.float32),
+        rotations=rng.normal(size=(n, 4)).astype(np.float32),
+        means2d_extra=np.zeros((n, 2), np.float32))
+    cfg = raster.RasterConfig(64, 96, 0.45, 0.35, max_gaussians_per_tile=128)
+    target = rng.random((3, 64, 96)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+                  for k, v in arrays.items()}
+        img, _ = raster.rasterize(
+            viewmatrix=torch.eye(4, device=dev), bg_color=torch.ones(3, device=dev),
+            cfg=cfg, **leaves)
+        loss = ((img - torch.from_numpy(target).to(dev)) ** 2).sum()
+        grads[str(dev)] = [t.cpu() for t in torch.autograd.grad(
+            loss, list(leaves.values()))]
+    for name, a, b in zip(arrays, grads["cpu"], grads[str(cuda_device)]):
+        scale = float(a.abs().max())
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-3 * scale, msg=name)

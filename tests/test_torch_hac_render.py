@@ -128,11 +128,12 @@ def test_neural_gaussians_match_jax(decoded):
     want, _ = jhac.generate_neural_gaussians(
         state, JCFG, jnp.asarray(center), jnp.asarray(vis), decoded=decoded)
     with torch.no_grad():
-        got = thac.generate_neural_gaussians(
+        got, rate = thac.generate_neural_gaussians(
             tstate, TCFG, torch.from_numpy(center), torch.from_numpy(vis),
             decoded=decoded)
+    assert rate is None
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
-    for name in ("xyz", "color", "opacity", "scaling", "rot"):
+    for name in ("xyz", "color", "opacity", "scaling", "rot", "neural_opacity"):
         np.testing.assert_allclose(getattr(got, name).numpy(),
                                    np.asarray(getattr(want, name)),
                                    rtol=RTOL, atol=ATOL, err_msg=name)
@@ -246,6 +247,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: convert.state_from_numpy(flat, TCFG),
         lambda: tsoak.build_scene(np.random.default_rng(0), 32, 50, 2, 50),
         lambda: trender.CameraArrays.from_camera(cam),
+        lambda: tpipeline.train_scene(None, TCFG, None),
+        lambda: tsoak.train(None, 10),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
