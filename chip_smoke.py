@@ -38,18 +38,24 @@ non-zero exit and no result line:
           2, and a held-out PSNR above the serve phase's. Then a step at
           phases 0 and 2 by wall clock, CUDA events and torch.profiler, its
           host syncs; on one training frame's lists, both kernels against
-          their plain versions, timed beside their bounds; and the forward
-          re-timed on trained lists at K = 1024
+          their plain versions, timed beside their bounds, the backward's
+          global atomics and its time with only the longest list kept; and
+          the forward re-timed on trained lists at K = 1024
   reference  the whole slice at small widths on a 64x64 scene, on the card
           and through the port's CPU path, compared: ground truth, eval
           renders, and 3 training steps at phase 0
 
-With --baseline FILE, an earlier tile_blend.cu is built, run on the thin
-Gaussians at the cut (its values outside the tolerance are reported, not
-checked), and checked and timed beside the kernel on the serve frame, in
-turns (baseline, kernel, kernel, baseline); its C interface is
-tile_blend_forward(7 pointers, 5 ints, schedule scratch, out, stream), as
-from PR 5 on.
+With --baseline FILE, an earlier tile_blend.cu is built and run on the
+thin Gaussians at the cut (its values outside the tolerance are reported,
+not checked). Its forward is checked against the plain version and must
+give the kernel's image bit for bit on the serve frame and on the trained
+frame, and is timed beside the kernel on the serve frame in turns
+(baseline, kernel, kernel, baseline). Its backward is checked within
+gradient_tolerance on the trained frame and timed beside the kernel's
+there in turns, and with only the longest list kept. Its C interface is
+PR 6's: tile_blend_forward(7 pointers, 5 ints, schedule scratch, out,
+stream) and tile_blend_backward(8 pointers, 5 ints, schedule scratch, the
+4 gradients, stream).
 
 Then one JSON line per the port's kernels (launches, error, times, bound)
 and, last, {"ok": true, "device": {...}}. Nothing is written into the tree
@@ -434,14 +440,18 @@ def ptxas_lines(build_log: str) -> list[str]:
 
 
 def warp_records(tile_start, pair_gauss, mean2d, conic, opacity, *,
-                 tiles_x: int, max_k: int) -> int:
+                 tiles_x: int, max_k: int, quadrants: bool = False) -> int:
     """Records touched per warp, summed: for each tile, entry and warp of
-    the backward (4 warps, each of 64 pixels: rows 2w, 2w + 1, 2w + 8 and
-    2w + 9), whether any of its pixels blends the entry, which costs one
-    warp reduction and 9 atomics."""
+    the backward (4 warps of 64 pixels), whether any of its pixels blends
+    the entry, which costs that warp one gradient and one warp reduction.
+    The warps of PR 6's design take rows 2w, 2w + 1, 2w + 8 and 2w + 9 (PR
+    6's 9 scalar atomics per warp-record are charged by backward_bound);
+    with `quadrants`, warp w takes the 8x8 quadrant (w % 2, w // 2), as
+    the kernel now does."""
     total = 0
-    rows = torch.arange(tile_blend.PIX, device=mean2d.device) // tile_blend.TILE
-    warp = (rows % 8) // 2
+    pix = torch.arange(tile_blend.PIX, device=mean2d.device)
+    rows, cols = pix // tile_blend.TILE, pix % tile_blend.TILE
+    warp = (rows // 8) * 2 + cols // 8 if quadrants else (rows % 8) // 2
     for _, _, alpha, t_before, _, _ in tile_blend._alpha_chunks(
             tile_start, pair_gauss, mean2d, conic, opacity, tiles_x, max_k):
         blended = (t_before >= tile_blend.T_MIN) & (alpha > 0)  # [C, 256, K]
@@ -484,10 +494,12 @@ def backward_bound(tile_start, pair_gauss, mean2d, conic, opacity, *,
     return bytes_ms, "bytes", detail
 
 
-def check_gradients(name: str, frame, out, g, kw) -> float:
-    """The backward kernel against autograd of the plain version on one set
-    of lists, within gradient_tolerance; returns the largest |difference|."""
-    got = tile_blend.blend_tiles_backward(*frame, out, g, **kw)
+def check_gradients(name: str, frame, out, g, kw, got=None) -> float:
+    """The backward kernel's gradients (or `got`) against autograd of the
+    plain version on one set of lists, within gradient_tolerance; returns
+    the largest |difference|."""
+    if got is None:
+        got = tile_blend.blend_tiles_backward(*frame, out, g, **kw)
     torch.cuda.synchronize()
     want = tile_blend.blend_backward_reference(*frame, g, **kw)
     tol = tile_blend.gradient_tolerance(*frame, g, **kw)
@@ -507,18 +519,27 @@ def check_gradients(name: str, frame, out, g, kw) -> float:
     return worst
 
 
-def baseline_launcher(path: Path, frame, kw):
-    """fn() -> image of an earlier tile_blend.cu on the frame's lists, with
-    the C interface tile_blend_forward(7 pointers, 5 ints, schedule scratch,
-    out, stream)."""
+def baseline_library(path: Path):
+    """An earlier tile_blend.cu, built, with PR 6's C interface:
+    tile_blend_forward(7 pointers, 5 ints, schedule scratch, out, stream)
+    and tile_blend_backward(8 pointers, 5 ints, schedule scratch, the 4
+    gradients mean2d, conic, opacity, colors, stream)."""
     built = native.load_source(path)
     log(f"  baseline {path}: nvcc {built.seconds:.3f} s")
     for line in ptxas_lines(built.log):
         log(f"  baseline ptxas: {line}")
-    fn = built.lib.tile_blend_forward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    lib = built.lib
+    lib.tile_blend_forward.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    lib.tile_blend_forward.restype = ctypes.c_int
+    lib.tile_blend_backward.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+    lib.tile_blend_backward.restype = ctypes.c_int
+    return lib
+
+
+def baseline_launcher(lib, frame, kw):
+    """fn() -> image of the baseline's forward on the frame's lists."""
     args = [t.contiguous() for t in frame]
     n_tiles = args[0].shape[0] - 1
     sched = torch.empty(tile_blend.schedule_words(n_tiles), dtype=torch.int32,
@@ -526,13 +547,94 @@ def baseline_launcher(path: Path, frame, kw):
 
     def run():
         out = torch.empty((3, kw["height"], kw["width"]), device=args[0].device)
-        rc = fn(*[t.data_ptr() for t in args], n_tiles, kw["tiles_x"],
-                kw["height"], kw["width"], kw["max_k"], sched.data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        rc = lib.tile_blend_forward(
+            *[t.data_ptr() for t in args], n_tiles, kw["tiles_x"],
+            kw["height"], kw["width"], kw["max_k"], sched.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"baseline launch failed: CUDA error {rc}")
         return out
     return run
+
+
+def baseline_backward(lib, frame, out, g, kw):
+    """fn() -> (mean2d, conic, opacity, colors) gradients of the baseline's
+    backward for the image `out` and upstream gradient g."""
+    args = [t.contiguous() for t in frame[:6]] + [out.contiguous(), g.contiguous()]
+    n_tiles = args[0].shape[0] - 1
+    sched = torch.empty(tile_blend.schedule_words(n_tiles), dtype=torch.int32,
+                        device=args[0].device)
+
+    def run():
+        grads = [torch.zeros_like(t) for t in args[2:6]]
+        rc = lib.tile_blend_backward(
+            *[t.data_ptr() for t in args], n_tiles, kw["tiles_x"],
+            kw["height"], kw["width"], kw["max_k"], sched.data_ptr(),
+            *[t.data_ptr() for t in grads],
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline backward launch failed: CUDA error {rc}")
+        return tuple(grads)
+    return run
+
+
+def only_longest_list(frame, max_k: int):
+    """The frame's lists with every tile emptied but the one with the
+    longest list (at most max_k entries of it)."""
+    tile_start, pair_gauss = frame[0], frame[1]
+    counts = (tile_start[1:] - tile_start[:-1]).clamp_max(max_k)
+    tile = int(counts.argmax())
+    start, count = int(tile_start[tile]), int(counts[tile])
+    ts = torch.zeros_like(tile_start)
+    ts[tile + 1:] = count
+    return (ts, pair_gauss[start:start + count].contiguous(), *frame[2:])
+
+
+def quadrant_reach(tile_start, pair_gauss, mean2d, conic, opacity, *,
+                   tiles_x: int, max_k: int) -> torch.Tensor:
+    """[entries, 4] bool over the first min(count, max_k) entries of every
+    tile's list, tile by tile: the quadrants (q = (q % 2, q // 2) of 8x8)
+    where quadrant_mask (tile_blend.cu) finds that the entry's alpha can
+    reach 1/255, so the backward's warp of that quadrant walks it (before
+    the early stop). Mirrors its bound: opacity exp(-lmin d^2 / 2) with lmin
+    an underestimate of the conic's least eigenvalue and d the distance to
+    the quadrant's pixels, with slack for the near-cut window."""
+    counts = (tile_start[1:] - tile_start[:-1]).clamp_max(max_k).long()
+    tile = torch.repeat_interleave(torch.arange(counts.numel(),
+                                                device=counts.device), counts)
+    first = torch.repeat_interleave(counts.cumsum(0) - counts, counts)
+    entry = torch.arange(int(counts.sum()), device=counts.device) - first
+    g = pair_gauss[tile_start[:-1].long()[tile] + entry].long()
+    a, b, c = conic[g, 0], conic[g, 1], conic[g, 2]
+    mx, my, o = mean2d[g, 0], mean2d[g, 1], opacity[g]
+    x0 = (tile % tiles_x * tile_blend.TILE).float()
+    y0 = (tile // tiles_x * tile_blend.TILE).float()
+    lmin = (0.5 * (a + c) - torch.sqrt((0.5 * (a - c)) ** 2 + b * b)
+            - 1e-5 * (a.abs() + c.abs())).clamp_min(0.0)
+    dxm = torch.maximum((x0 - mx).abs(), (x0 + 15 - mx).abs())
+    dym = torch.maximum((y0 - my).abs(), (y0 + 15 - my).abs())
+    window = 1e-4 + 16 * tile_blend.F32_ULP * (
+        0.5 * a.abs() * dxm * dxm + b.abs() * dxm * dym + 0.5 * c.abs() * dym * dym)
+    room = torch.log(255.0 * o) + 2 * window + 1e-3
+    reach = []
+    for q in range(4):
+        bx, by = x0 + (q % 2) * 8, y0 + (q // 2) * 8
+        dx = torch.clamp_min(torch.maximum(bx - mx, mx - (bx + 7)), 0.0)
+        dy = torch.clamp_min(torch.maximum(by - my, my - (by + 7)), 0.0)
+        reach.append(0.5 * lmin * (dx * dx + dy * dy) <= room)
+    return torch.stack(reach, -1)
+
+
+def tile_records(tile_start, pair_gauss, mean2d, conic, opacity, *,
+                 tiles_x: int, max_k: int) -> int:
+    """(tile, list entry) pairs that some pixel of the tile blends: the
+    backward adds each such record's block sum with one flush of
+    kGradStride / 4 = 3 vector atomics."""
+    total = 0
+    for _, _, alpha, t_before, _, _ in tile_blend._alpha_chunks(
+            tile_start, pair_gauss, mean2d, conic, opacity, tiles_x, max_k):
+        total += int(((t_before >= tile_blend.T_MIN) & (alpha > 0)).any(1).sum())
+    return total
 
 
 def main() -> int:
@@ -604,8 +706,10 @@ def main() -> int:
                     cut_want, rtol_c, atol_c)
         check_gradients("thin Gaussians at the cut, backward vs plain autograd",
                         cut, cut_out, g, kw_cut)
+        base_lib = None
         if opts.baseline is not None:
-            base_cut = baseline_launcher(opts.baseline, cut, kw_cut)()
+            base_lib = baseline_library(opts.baseline)
+            base_cut = baseline_launcher(base_lib, cut, kw_cut)()
             torch.cuda.synchronize()
             diff = (base_cut - cut_want).abs()
             log(f"  baseline on the thin Gaussians at the cut: max |diff| "
@@ -718,9 +822,15 @@ def main() -> int:
                                  f"(torch.profiler, {hit[0][0]} launches)"
                                  if hit else "not measured (no device time "
                                  "in the profile)"))
-        if opts.baseline is not None:
-            base = baseline_launcher(opts.baseline, frame, kw)
-            check_close("baseline, frame vs plain", base(), want, rtol, atol)
+        if base_lib is not None:
+            base = baseline_launcher(base_lib, frame, kw)
+            base_img = base()
+            check_close("baseline, frame vs plain", base_img, want, rtol, atol)
+            if not torch.equal(base_img, got):
+                raise RuntimeError("the forward's image differs from the "
+                                   "baseline's on the serve frame")
+            log("  serve frame: the forward's image is bit-equal to the "
+                "baseline's")
             turns = []
             for who in ("baseline", "kernel", "kernel", "baseline"):
                 fn = base if who == "baseline" else (
@@ -924,6 +1034,64 @@ def main() -> int:
             f"plain (autograd of the plain version, backward only) "
             f"{bwd_plain_ms:.4f} ms, bound {bwd_bound_ms:.4f} ms "
             f"({bwd_bound_by}: {bwd_detail})")
+        # what the flush issues: 3 vector atomics per (tile, record) that some
+        # pixel blends, where PR 6's kernel issued 9 scalar ones per
+        # warp-record touched
+        n_warp_records = warp_records(*frame_t[:5], tiles_x=rcfg_t.tiles_x,
+                                      max_k=kw_t["max_k"])
+        n_quad_records = warp_records(*frame_t[:5], tiles_x=rcfg_t.tiles_x,
+                                      max_k=kw_t["max_k"], quadrants=True)
+        n_tile_records = tile_records(*frame_t[:5], tiles_x=rcfg_t.tiles_x,
+                                      max_k=kw_t["max_k"])
+        n_reach = int(quadrant_reach(*frame_t[:5], tiles_x=rcfg_t.tiles_x,
+                                     max_k=kw_t["max_k"]).sum())
+        n_entries = int((frame_t[0][1:] - frame_t[0][:-1]).clamp_max(
+            kw_t["max_k"]).sum())
+        log(f"  backward's culling on the trained frame: {n_reach} of "
+            f"{4 * n_entries} warp-records ({n_reach / max(4 * n_entries, 1):.4f}) "
+            f"can reach their warp's quadrant and are walked, before the "
+            f"early stop")
+        log(f"  backward's global atomics on the trained frame: "
+            f"{3 * n_tile_records} 16-byte vector atomics ({n_tile_records} "
+            f"tile-records touched), after {n_quad_records} warp reductions "
+            f"(warp-records touched, a quadrant a warp); PR 6's design: "
+            f"{9 * n_warp_records} scalar atomics after {n_warp_records} "
+            f"warp reductions (warp-records touched, rows 2w, 2w + 1, 2w + 8, "
+            f"2w + 9 a warp)")
+        # the serial walk of the longest list alone
+        one = only_longest_list(frame_t, kw_t["max_k"])
+        out_one = tile_blend.blend_tiles(*one, **kw_t)
+        one_ms, _ = device_ms(lambda: tile_blend.blend_tiles_backward(
+            *one, out_one, g_t, **kw_t), 20)
+        log(f"  backward with only the longest list kept ({one[1].shape[0]} "
+            f"entries, one block): {one_ms:.4f} ms, against {bwd_ms:.4f} ms for "
+            f"the whole frame ({one_ms / bwd_ms:.3f})")
+        if base_lib is not None:
+            base_t = baseline_launcher(base_lib, frame_t, kw_t)
+            if not torch.equal(base_t(), out_t):
+                raise RuntimeError("the forward's image differs from the "
+                                   "baseline's on the trained frame")
+            log("  trained frame: the forward's image is bit-equal to the "
+                "baseline's")
+            base_bwd = baseline_backward(base_lib, frame_t, out_t, g_t, kw_t)
+            check_gradients("trained frame, baseline backward vs plain autograd",
+                            frame_t, out_t, g_t, kw_t, got=base_bwd())
+            turns = []
+            for who in ("baseline", "kernel", "kernel", "baseline"):
+                fn = base_bwd if who == "baseline" else (
+                    lambda: tile_blend.blend_tiles_backward(
+                        *frame_t, out_t, g_t, **kw_t))
+                ms, host = device_ms(fn, 20)
+                turns.append(ms)
+                log(f"  backward turn {len(turns)}: {who} {ms:.4f} ms (host "
+                    f"{host:.4f} ms)")
+            log(f"  backward in turns: baseline {(turns[0] + turns[3]) / 2:.4f} "
+                f"ms, kernel {(turns[1] + turns[2]) / 2:.4f} ms (means of the "
+                f"turns)")
+            base_one = baseline_backward(base_lib, one, out_one, g_t, kw_t)
+            base_one_ms, _ = device_ms(base_one, 20)
+            log(f"  baseline backward with only the longest list kept: "
+                f"{base_one_ms:.4f} ms")
         fwd_t_ms, _ = device_ms(lambda: tile_blend.blend_tiles(*frame_t, **kw_t), 20)
         fb_ms, fb_by, fb_detail = blend_bound(*frame_t[:5], **kw_t)
         log(f"  tile_blend at the trained frame: {fwd_t_ms:.4f} ms, bound "

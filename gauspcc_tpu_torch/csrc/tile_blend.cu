@@ -125,16 +125,58 @@
 //   dpower/d(a, b, c) = (-dx^2 / 2, -dx dy, -dy^2 / 2)
 // (none through the power where it was clamped to 0). So the forward keeps
 // no state for it. The alphas are computed by the forward's own code
-// (record_alphas, the same chunks, redo and cut), so both keep and drop
-// the same entries. A lane's 2 pixels' partials of a record (9 floats) are
-// summed across the warp with __shfl_xor_sync, then 9 lanes add them into
-// the record's Gaussian with one atomicAdd each; a warp whose lanes left no
-// partial for a record skips both. Lanes whose pixels stopped stay in the
-// loop and add zeros, as the full-mask shuffles need every lane. Bound: the
-// forward's alpha work per evaluated pixel-entry, plus about 40 operations
-// of gradient per blended one, plus the reduction per record and warp; the
-// atomics write 36 B per Gaussian and warp that touched it. A reduction per
-// tile through shared memory before the atomics is later work.
+// (record_alphas: the same redo near the cut and the same cut), so both
+// keep and drop the same entries. Bound: the forward's alpha work per
+// evaluated pixel-entry plus about 40 operations of gradient per blended
+// one, so it is issue-bound like the forward, and a list of K entries is
+// one block's serial walk. The first design (PR 6: one 9-value butterfly
+// and 9 scalar atomics per record and warp, the gradient computed for
+// every record) spent its time beyond that on instructions for entries no
+// pixel blends, on shuffles and on atomics. Design, each part timed on the
+// H100 against that one in turns (PERF.md):
+// - Quadrants. Warp w walks the 8x8 quadrant (w & 1, w >> 1) of the tile,
+//   a lane one column and two rows 4 apart, where the forward's warps take
+//   rows across the tile: a small Gaussian touches fewer warps, and each
+//   warp that touches a record pays one gradient and one reduction for it
+//   (0.73 of the warp-records on a trained frame).
+// - Culling by quadrant. When a batch is folded, the thread that staged a
+//   record also marks the quadrants where its alpha can reach 1/255
+//   (quadrant_mask: opacity exp(-lmin d^2 / 2), lmin an underestimate of
+//   the conic's least eigenvalue, d the distance to the quadrant, with
+//   slack for the rounding); each warp compacts the batch to its records
+//   by ballot and walks only those. A record left out has alpha 0 at every
+//   pixel of the quadrant, where T and S stay as they were.
+// - Vote before the arithmetic. Per record, the walk first advances T and
+//   finds which pixels blend it; one warp vote then skips the gradient
+//   (c . g, S, dL/dalpha and the partials) of a record no lane blends.
+// - Fewer operations per blended entry. dL/do needs no exp(power): where
+//   dL/dalpha != 0 the entry is blended below the 0.99 clamp, so alpha =
+//   opacity e; the walk sums dL/dalpha alpha and the flush divides by the
+//   opacity once. A power clamped to 0 is marked by the sign of the alpha
+//   record_alphas returns. The mean's and the conic's 5 parts are summed as
+//   moments of dL/dpower about the mean (dx, dy, dx^2, dx dy, dy^2), which
+//   the flush turns into gradients with the record's conic
+//   (gradient_of_moments). 1 / (1 - alpha) is rcp.approx.
+// - A transposed warp reduction (reduce_partials): recursive halving, at
+//   lane offsets 16, 8, 4, 2 each lane sends half its vector and keeps the
+//   other half, 9 -> 5 -> 3 -> 2 -> 1 values, then a butterfly at 1: 12
+//   shuffles where the butterfly took 45, and 9 lanes end holding one
+//   whole sum each (reduced_part), with no select ladder.
+// - One combined atomic per tile and record. Each warp stores its sums in
+//   its own slice of shared memory (no shared atomics: a warp writes each
+//   record of a batch once) and marks the record; after the batch's
+//   barrier the thread that staged a record adds the block's sum into the
+//   packed gradient [N, 12] (rgb, opacity, mean, conic, pad) with three
+//   16-byte vector atomics (red.global.add.v4.f32, sm_90), only for a
+//   record some warp touched. Lanes whose pixels stopped stay in the loop
+//   and add zeros, as the full-mask shuffles need every lane.
+// - 128 registers, no spill, 4 blocks per SM (__launch_bounds__(128, 4)),
+//   as the forward.
+// Tried, each timed against PR 6's design in turns, and slower than this:
+// the partials of 4 records reduced as one 36-value vector; the reduction
+// pipelined over 5 records in flight; 5 blocks per SM (96 registers, 92 B
+// of spill); a vote per chunk to leave a batch once every pixel of the
+// warp has stopped (no gain).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -156,10 +198,27 @@ constexpr float kTMin = 1e-4f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kChunk = 8;  // records whose alphas are computed together
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kPartials = 9;  // gradient floats per record: rgb, o, mx, my, a, b, c
+constexpr int kWarps = kThreads / 32;
+// The gradient's pixels: each warp one kQuad x kQuad quadrant of the tile
+constexpr int kQuad = kTile / 2;
+constexpr int kQuadRowStep = 32 / kQuad;  // rows between a lane's pixels
+static_assert(kWarps == 4 && kPixPerThread * kQuadRowStep == kQuad,
+              "4 warps of 8x8 pixels");
+// gradient floats per record: rgb, opacity, mean 2 and conic 3 (the last
+// 5 summed as moments until the flush)
+constexpr int kPartials = 9;
+// the packed gradient [N, kGradStride]: the parts' offsets, then a pad to 16 B
+constexpr int kGradStride = 12;
+constexpr int kGradColors = 0;
+constexpr int kGradOpacity = 3;
+constexpr int kGradMean = 4;
+constexpr int kGradConic = 6;
+static_assert(kGradConic + 3 == kPartials && kGradStride % 4 == 0, "layout");
+static_assert(kBatch <= kThreads, "a batch's records are flushed one a thread");
 
-// (mx, my, A, B), (C, opacity, r, g), (b, window, -, -); A, B, C folded
-// conic, window the record's near-cut window on its tile
+// (mx, my, A, B), (C, opacity, r, g), (b, window, quadrants, -); A, B, C
+// folded conic, window the record's near-cut window on its tile, quadrants
+// (the gradient's only) the bits of quadrant_mask
 struct Record {
   float4 a, b, c;
 };
@@ -205,6 +264,43 @@ __device__ __forceinline__ void fold(Record& r, float x0, float y0) {
   r.b.x *= -0.5f;
 }
 
+// The records of a gathered chunk: rec[k] is base[idx[k]].
+struct Gathered {
+  const Record* base;
+  const int* idx;
+  __device__ __forceinline__ const Record& operator[](int k) const {
+    return base[idx[k]];
+  }
+};
+
+// The gradient's quadrants (bit q for quadrant (q & 1, q >> 1) of the tile
+// at (x0, y0)) where the record, folded, can reach alpha >= 1/255. A bound
+// that holds whatever the rounding: power <= -lmin d^2 / 2 over a quadrant,
+// with lmin an underestimate of the conic's least eigenvalue and d the
+// distance from the mean to the quadrant's pixels, so the record is left
+// out only where opacity exp(-lmin d^2 / 2) lies below 1/255 by twice its
+// near-cut window and 1e-3 more.
+__device__ __forceinline__ unsigned quadrant_mask(const Record& r, float x0,
+                                                  float y0) {
+  // the folded (A, B, C) = (-a/2, -b, -c/2)
+  const float a = -2.0f * r.a.z, b = -r.a.w, c = -2.0f * r.b.x;
+  const float half_sum = 0.5f * (a + c), half_diff = 0.5f * (a - c);
+  const float lmin = fmaxf(half_sum - sqrtf(half_diff * half_diff + b * b) -
+                               1e-5f * (fabsf(a) + fabsf(c)),
+                           0.0f);
+  // reach: log(255 opacity) + slack >= lmin d^2 / 2
+  const float room = logf(255.0f * r.b.y) + 2.0f * r.c.y + 1e-3f;
+  unsigned mask = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float bx = x0 + (q & 1) * kQuad, by = y0 + (q >> 1) * kQuad;
+    const float dx = fmaxf(fmaxf(bx - r.a.x, r.a.x - (bx + (kQuad - 1))), 0.0f);
+    const float dy = fmaxf(fmaxf(by - r.a.y, r.a.y - (by + (kQuad - 1))), 0.0f);
+    if (0.5f * lmin * (dx * dx + dy * dy) <= room) mask |= 1u << q;
+  }
+  return mask;
+}
+
 // The power as the plain version rounds it, each product and sum in turn
 // (no FMA contraction): -0.5 (a dx dx + c dy dy) - b dx dy, with the
 // conic unfolded from the record (exact).
@@ -225,13 +321,16 @@ __device__ __forceinline__ float plain_power(const float4& ra,
 // plain_power and expf (one warp-uniform test per chunk, rarely taken), so
 // the kernel keeps and drops the entries the plain version does. The
 // forward votes among the lanes still blending (__activemask()); the
-// gradient, whose lanes all stay in the loop, votes with `voting` the same
-// lanes, so both redo the same chunks. kExp also returns exp(power) in
-// `ex` (0 where alpha is dropped).
-template <int C, int P, bool kExp>
+// gradient, whose lanes all stay in the loop, among the lanes `voting`.
+// Its warps and chunks hold other pixels and records than the forward's,
+// so an alpha far from the cut may differ from the forward's by the two
+// exponentials' rounding, but every alpha near it is redone on both
+// sides, so both keep and drop the same entries. kGrad also marks an
+// alpha whose exp(power) is 1 (the power clamped to 0) by its sign.
+template <int C, int P, bool kGrad, typename Records>
 __device__ __forceinline__ void record_alphas(
-    const Record* __restrict__ rec, float px, const float (&py)[P],
-    bool voting, float (&a)[C][P], float (&ex)[C][P]) {
+    const Records& rec, float px, const float (&py)[P], bool voting,
+    float (&a)[C][P]) {
   bool near = false;
 #pragma unroll
   for (int k = 0; k < C; ++k) {
@@ -248,12 +347,14 @@ __device__ __forceinline__ void record_alphas(
       const float e = ex2_approx(power * kLog2e);
       const float alpha = fminf(kAlphaMax, rb.y * e);
       near |= fabsf(fmaf(alpha, 255.0f, -1.0f)) < window;
-      a[k][i] = alpha >= kAlphaMin ? alpha : 0.0f;
-      if constexpr (kExp) ex[k][i] = alpha >= kAlphaMin ? e : 0.0f;
+      if constexpr (kGrad)
+        a[k][i] = alpha >= kAlphaMin ? (e < 1.0f ? alpha : -alpha) : 0.0f;
+      else
+        a[k][i] = alpha >= kAlphaMin ? alpha : 0.0f;
     }
   }
   bool redo;
-  if constexpr (kExp)
+  if constexpr (kGrad)
     redo = __any_sync(kFullMask, near && voting);
   else
     redo = __any_sync(__activemask(), near);
@@ -269,8 +370,10 @@ __device__ __forceinline__ void record_alphas(
         const float power = fminf(plain_power(ra, rb, dx, dy), 0.0f);
         const float e = expf(power);
         const float alpha = fminf(kAlphaMax, __fmul_rn(rb.y, e));
-        a[k][i] = alpha >= kAlphaMin ? alpha : 0.0f;
-        if constexpr (kExp) ex[k][i] = alpha >= kAlphaMin ? e : 0.0f;
+        if constexpr (kGrad)
+          a[k][i] = alpha >= kAlphaMin ? (e < 1.0f ? alpha : -alpha) : 0.0f;
+        else
+          a[k][i] = alpha >= kAlphaMin ? alpha : 0.0f;
       }
     }
   }
@@ -283,8 +386,8 @@ template <int C, int P>
 __device__ __forceinline__ void blend_records(
     const Record* __restrict__ rec, float px, const float (&py)[P],
     float (&t)[P], float (&cr)[P], float (&cg)[P], float (&cb)[P]) {
-  float a[C][P], unused[C][P], col[C][3];
-  record_alphas<C, P, false>(rec, px, py, true, a, unused);
+  float a[C][P], col[C][3];
+  record_alphas<C, P, false>(rec, px, py, true, a);
 #pragma unroll
   for (int k = 0; k < C; ++k) {
     col[k][0] = rec[k].b.z;
@@ -305,23 +408,100 @@ __device__ __forceinline__ void blend_records(
   }
 }
 
-// The gradient of C records at a thread's P pixels, in the forward's
-// order: phase A as the forward, then per record the walk that updates T
-// and S and forms the record's 9 partials over the thread's pixels, their
-// sum over the warp, and the atomics of 9 lanes into the record's Gaussian
-// (ids[k]). gr, gg, gb: dL/d(pixel); gsum: G = out . g per pixel.
+// The lengths of a kPartials vector before each halving of reduce_partials
+// (lane offsets 16, 8, 4, 2, 1): 9, 5, 3, 2, 1.
+__host__ __device__ constexpr int halved_length(int step) {
+  int n = kPartials;
+  for (int s = 0; s < step; ++s) n = (n + 1) / 2;
+  return n;
+}
+
+// The partial whose warp sum lane `lane` stores after reduce_partials, or
+// -1 (the lanes left holding padding, and the odd lane of each pair after
+// the last step, a butterfly): its position walked back from the last
+// halving to the first, where a lane with the offset's bit set kept the
+// upper half.
+__device__ __forceinline__ int reduced_part(unsigned lane) {
+  int pos = 0;
+#pragma unroll
+  for (int step = 4; step >= 0; --step) {
+    const int n = halved_length(step);
+    if (lane & (16u >> step)) pos += (n + 1) / 2;
+    if (pos >= n) return -1;
+  }
+  return pos;
+}
+
+// Sums the N values v over the warp, transposed: at lane offset kOff a
+// lane keeps the upper half of its vector (padded with 0) if lane & kOff,
+// else the lower, and adds the partner's copy of it; then the next offset,
+// 9 -> 5 -> 3 -> 2 -> 1 values, and at offset 1 a butterfly. Returns the
+// warp sum of partial reduced_part(lane) in the lanes where that is not -1.
+template <int N, int kOff>
+__device__ __forceinline__ float reduce_partials(const float (&v)[N],
+                                                 unsigned lane) {
+  if constexpr (kOff == 1) {
+    static_assert(N == 1, "one value is left for the last step");
+    return v[0] + __shfl_xor_sync(kFullMask, v[0], 1);
+  } else {
+    constexpr int H = (N + 1) / 2;
+    const bool upper = lane & kOff;
+    float w[H];
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const float lo = v[j];
+      const float hi = j + H < N ? v[j + H < N ? j + H : 0] : 0.0f;
+      const float keep = upper ? hi : lo;
+      const float send = upper ? lo : hi;
+      w[j] = keep + __shfl_xor_sync(kFullMask, send, kOff);
+    }
+    return reduce_partials<H, kOff / 2>(w, lane);
+  }
+}
+
+// rcp.approx: 1 - alpha lies in [0.01, 1], so no scaling of the quotient
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The gradient of C records, cur[idx[0..C)], at a thread's P pixels, in
+// the forward's order: phase A as the forward, then per record the walk
+// that advances T and finds the pixels that blend it; if any lane of the
+// warp has one, S and the record's 9 partials over the thread's pixels,
+// their warp sum (reduce_partials), stored by the lane holding each part
+// (part = reduced_part(lane), -1 for none) into this warp's slice `acc`
+// (record j at j kGradStride floats), and record j marked in `touch` (at
+// byte j kWarps). gr, gg, gb: dL/d(pixel); gsum: G = out . g per pixel.
+// The partials: dL/dcolor; dL/dalpha alpha, which the flush divides by the
+// opacity; and the moments of dL/dpower, which it turns into the mean's
+// and the conic's gradients (gradient_of_moments).
 template <int C, int P>
 __device__ __forceinline__ void backward_records(
-    const Record* __restrict__ rec, const int* __restrict__ ids, float px,
+    const Record* __restrict__ cur, const int* __restrict__ idx, float px,
     const float (&py)[P], bool voting, float (&t)[P], float (&s)[P],
     const float (&gr)[P], const float (&gg)[P], const float (&gb)[P],
-    const float (&gsum)[P], unsigned lane, float* __restrict__ g_mean2d,
-    float* __restrict__ g_conic, float* __restrict__ g_opacity,
-    float* __restrict__ g_colors) {
-  float a[C][P], ex[C][P];
-  record_alphas<C, P, true>(rec, px, py, voting, a, ex);
+    const float (&gsum)[P], unsigned lane, int part,
+    float* __restrict__ acc, unsigned char* __restrict__ touch) {
+  const Gathered rec{cur, idx};
+  float a[C][P];
+  record_alphas<C, P, true>(rec, px, py, voting, a);
 #pragma unroll
   for (int k = 0; k < C; ++k) {
+    float tb[P];
+    bool blended[P];
+    bool touched = false;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const float al = fabsf(a[k][i]);
+      const bool live = t[i] >= kTMin;
+      blended[i] = live && al > 0.0f;
+      touched |= blended[i];
+      tb[i] = t[i];
+      t[i] = live ? t[i] * (1.0f - al) : t[i];
+    }
+    if (!__any_sync(kFullMask, touched)) continue;  // warp-uniform
     const float4 ra = rec[k].a;
     const float4 rb = rec[k].b;
     const float col_b = rec[k].c.x;
@@ -329,61 +509,65 @@ __device__ __forceinline__ void backward_records(
     float p[kPartials];
 #pragma unroll
     for (int j = 0; j < kPartials; ++j) p[j] = 0.0f;
-    bool touched = false;
 #pragma unroll
     for (int i = 0; i < P; ++i) {
       const float dy = py[i] - ra.y;
-      const float al = a[k][i];
-      const bool live = t[i] >= kTMin;
-      const bool blended = live && al > 0.0f;
+      const float al = fabsf(a[k][i]);
       const float cdotg = rb.z * gr[i] + rb.w * gg[i] + col_b * gb[i];
-      const float w = blended ? al * t[i] : 0.0f;
+      const float w = blended[i] ? al * tb[i] : 0.0f;
       s[i] = fmaf(w, cdotg, s[i]);
       const float dal =
-          (blended && al < kAlphaMax)
-              ? t[i] * cdotg - __fdividef(gsum[i] - s[i], 1.0f - al)
+          (blended[i] && al < kAlphaMax)
+              ? tb[i] * cdotg - (gsum[i] - s[i]) * rcp_approx(1.0f - al)
               : 0.0f;
-      t[i] = live ? t[i] * (1.0f - al) : t[i];
-      touched |= blended;
-      // none through the power where it was clamped to 0 (e == 1)
-      const float dpow = ex[k][i] < 1.0f ? dal * al : 0.0f;
-      p[0] = fmaf(w, gr[i], p[0]);
-      p[1] = fmaf(w, gg[i], p[1]);
-      p[2] = fmaf(w, gb[i], p[2]);
-      p[3] = fmaf(dal, ex[k][i], p[3]);
-      // dpower/dmx = a dx + b dy = -(2 A dx + B dy), dpower/dmy = c dy +
-      // b dx = -(2 C dy + B dx); dpower/d(a, b, c) = (-dx^2/2, -dx dy,
-      // -dy^2/2), from the folded (A, B, C) = (-a/2, -b, -c/2)
-      p[4] -= dpow * fmaf(2.0f * ra.z, dx, ra.w * dy);
-      p[5] -= dpow * fmaf(2.0f * rb.x, dy, ra.w * dx);
-      p[6] -= 0.5f * dpow * dx * dx;
-      p[7] -= dpow * dx * dy;
-      p[8] -= 0.5f * dpow * dy * dy;
+      // dL/dalpha alpha: dL/do times the opacity, and dL/dpower unless
+      // the power was clamped to 0 (a < 0)
+      const float dal_al = dal * al;
+      const float dpow = a[k][i] > 0.0f ? dal_al : 0.0f;
+      p[kGradColors] = fmaf(w, gr[i], p[kGradColors]);
+      p[kGradColors + 1] = fmaf(w, gg[i], p[kGradColors + 1]);
+      p[kGradColors + 2] = fmaf(w, gb[i], p[kGradColors + 2]);
+      p[kGradOpacity] += dal_al;
+      // the moments of dL/dpower about the mean, from which the flush
+      // forms the mean's and the conic's parts (gradient_of_moments)
+      const float u = dpow * dx, v = dpow * dy;
+      p[kGradMean] += u;
+      p[kGradMean + 1] += v;
+      p[kGradConic] = fmaf(u, dx, p[kGradConic]);
+      p[kGradConic + 1] = fmaf(u, dy, p[kGradConic + 1]);
+      p[kGradConic + 2] = fmaf(v, dy, p[kGradConic + 2]);
     }
-    if (!__any_sync(kFullMask, touched)) continue;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int j = 0; j < kPartials; ++j)
-        p[j] += __shfl_xor_sync(kFullMask, p[j], off);
-    }
-    if (lane < kPartials) {
-      const int g = ids[k];
-      float v = p[0];
-      float* dst = g_colors + 3 * g;
-#pragma unroll
-      for (int j = 1; j < kPartials; ++j) {
-        if (lane == static_cast<unsigned>(j)) {
-          v = p[j];
-          dst = j < 3   ? g_colors + 3 * g + j
-                : j == 3 ? g_opacity + g
-                : j < 6  ? g_mean2d + 2 * g + (j - 4)
-                         : g_conic + 3 * g + (j - 6);
-        }
-      }
-      atomicAdd(dst, v);
-    }
+    const float sum = reduce_partials<kPartials, 16>(p, lane);
+    const int j = idx[k];
+    if (part >= 0) acc[j * kGradStride + part] = sum;
+    if (lane == 0) touch[j * kWarps] = 1;
   }
+}
+
+// The mean's and the conic's gradients of a record, in place, from the
+// moments of dL/dpower about its mean that the walk summed, m = (Sx, Sy,
+// Sxx, Sxy) and n.x = Syy (S.. = sum of dL/dpower dx.., dx = x - mx). With
+// dpower/dmx = a dx + b dy = -(2 A dx + B dy), dpower/dmy = c dy + b dx =
+// -(2 C dy + B dx) and dpower/d(a, b, c) = (-dx^2/2, -dx dy, -dy^2/2), from
+// the record's folded (A, B, C) = (-a/2, -b, -c/2):
+//   m <- dL/d(mx, my, a, b) = -(2 A Sx + B Sy, 2 C Sy + B Sx, Sxx / 2, Sxy)
+//   n.x <- dL/dc = -Syy / 2
+__device__ __forceinline__ void gradient_of_moments(const Record& r, float4& m,
+                                                    float4& n) {
+  const float two_a = 2.0f * r.a.z, b = r.a.w, two_c = 2.0f * r.b.x;
+  const float sx = m.x, sy = m.y;
+  m.x = -fmaf(two_a, sx, b * sy);
+  m.y = -fmaf(two_c, sy, b * sx);
+  m.z = -0.5f * m.z;
+  m.w = -m.w;
+  n.x = -0.5f * n.x;
+}
+
+// Adds the 4 floats v into dst (16-byte aligned) with one vector atomic.
+__device__ __forceinline__ void red_add_v4(float* dst, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(dst),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 __device__ __forceinline__ unsigned sm_id() {
@@ -631,10 +815,14 @@ __global__ void __launch_bounds__(kThreads, 4) blend_kernel(
   }
 }
 
-// The gradient of blend_kernel's image: the same schedule, staging, chunks
-// and early stop, with the walk of backward_records in place of the
-// blend. Adds into g_* (zeroed by the caller).
-__global__ void __launch_bounds__(kThreads) backward_kernel(
+// The gradient of blend_kernel's image: the same schedule, staging and
+// early stop; each warp walks its quadrant's pixels through the records of
+// a batch that can reach it (quadrant_mask), in chunks, with
+// backward_records in place of the blend. Each warp keeps its sums of a
+// batch's records in its slice of s_acc; after the batch's barrier the
+// thread that staged record j adds the block's sum into grad (zeroed by
+// the caller) if some warp touched it.
+__global__ void __launch_bounds__(kThreads, 4) backward_kernel(
     const int32_t* __restrict__ tile_start,  // [T + 1]
     const int32_t* __restrict__ pair_gauss,  // [pairs]
     const float* __restrict__ mean2d,        // [N, 2]
@@ -645,18 +833,25 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(
     const float* __restrict__ grad_out,      // [3, H, W] dL/d(image)
     int n_tiles, int tiles_x, int height, int width, int max_k,
     int32_t* __restrict__ sched,             // Schedule, ordered
-    float* __restrict__ g_mean2d,            // [N, 2]
-    float* __restrict__ g_conic,             // [N, 3]
-    float* __restrict__ g_opacity,           // [N]
-    float* __restrict__ g_colors) {          // [N, 3]
+    float* __restrict__ grad) {              // [N, kGradStride], packed
   constexpr int P = kPixPerThread;
   __shared__ Record s_rec[2][kBatch];
   __shared__ int s_ids[2][kBatch];
+  // each warp's sums of the batch's records, and which warps touched each
+  __shared__ __align__(16) float s_acc[kWarps][kBatch][kGradStride];
+  __shared__ uint32_t s_touch[kBatch];
+  __shared__ int s_list[kWarps][kBatch];  // each warp's records of the batch
   __shared__ int s_slot;
 
   const int tid = threadIdx.x;
   const unsigned lane = tid & 31;
+  const int warp = tid >> 5;
+  const int part = reduced_part(lane);
   const int hw = height * width;
+  // the pad of every slice stays 0; the parts are written before they are read
+  for (int i = tid; i < kWarps * kBatch * kGradStride; i += kThreads)
+    (&s_acc[0][0][0])[i] = 0.0f;
+  if (tid < kBatch) s_touch[tid] = 0;
 
   Schedule sc(sched, n_tiles);
   if (tid == 0) s_slot = sc.first(n_tiles);
@@ -669,13 +864,15 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(
     const int count = min(tile_start[tile + 1] - start, max_k);
     const int n_batches = (count + kBatch - 1) / kBatch;
     const int x0 = (tile % tiles_x) * kTile, y0t = (tile / tiles_x) * kTile;
-    const int x = x0 + (tid & (kTile - 1));
-    const int y0 = y0t + tid / kTile;
+    // warp w takes the 8x8 quadrant (w & 1, w >> 1) of the tile, a lane
+    // one column of it and rows kQuadRowStep apart
+    const int x = x0 + (warp & 1) * kQuad + (lane & (kQuad - 1));
+    const int y0 = y0t + (warp >> 1) * kQuad + lane / kQuad;
     const float px = static_cast<float>(x);
     float py[P], t[P], s[P], gr[P], gg[P], gb[P], gsum[P];
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      const int y = y0 + kRowStep * i;
+      const int y = y0 + kQuadRowStep * i;
       py[i] = static_cast<float>(y);
       t[i] = 1.0f;
       s[i] = 0.0f;
@@ -699,7 +896,6 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(
     int done = 0;
     for (int b = 0; b < n_batches; ++b) {
       Record* cur = s_rec[b & 1];
-      const int* ids = s_ids[b & 1];
       if (b + 1 < n_batches)
         stage(s_rec[(b + 1) & 1], s_ids[(b + 1) & 1], gi, tid, mean2d, conic,
               opacity, colors);
@@ -708,28 +904,82 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(
         load_indices(gi, pair_gauss, tid, start, count, b + 2);
       cp_async_wait<1>();
       const int n = min(kBatch, count - b * kBatch);
-#pragma unroll
-      for (int u = 0; u < kPerThread; ++u) {
-        const int j = tid + u * kThreads;
-        if (j < n) fold(cur[j], static_cast<float>(x0), static_cast<float>(y0t));
+      // the record this thread staged, folds and flushes: its Gaussian and
+      // opacity, kept in registers for the flush
+      int flush_g = -1;
+      float flush_o = 1.0f;
+      if (tid < n) {
+        Record& r = cur[tid];
+        flush_g = s_ids[b & 1][tid];
+        flush_o = r.b.y;
+        fold(r, static_cast<float>(x0), static_cast<float>(y0t));
+        r.c.z = __int_as_float(static_cast<int>(quadrant_mask(
+            r, static_cast<float>(x0), static_cast<float>(y0t))));
       }
       __syncthreads();
       if (__any_sync(kFullMask, !done)) {  // warp-uniform
         const bool voting = !done;
+        // the batch's records that can reach this warp's quadrant, in order
+        int* list = s_list[warp];
+        int n_list = 0;
+#pragma unroll
+        for (int h = 0; h < kBatch; h += 32) {
+          const int j = h + static_cast<int>(lane);
+          const bool reach =
+              j < n && (__float_as_int(cur[j].c.z) >> warp & 1) != 0;
+          const unsigned ballot = __ballot_sync(kFullMask, reach);
+          if (reach) list[n_list + __popc(ballot & ((1u << lane) - 1u))] = j;
+          n_list += __popc(ballot);
+        }
+        __syncwarp();
+        float* acc = &s_acc[warp][0][0];
+        unsigned char* touch = reinterpret_cast<unsigned char*>(s_touch) + warp;
         int k = 0;
-        for (; k + kChunk <= n; k += kChunk)
-          backward_records<kChunk, P>(cur + k, ids + k, px, py, voting, t, s,
-                                      gr, gg, gb, gsum, lane, g_mean2d,
-                                      g_conic, g_opacity, g_colors);
-        for (; k < n; ++k)
-          backward_records<1, P>(cur + k, ids + k, px, py, voting, t, s, gr,
-                                 gg, gb, gsum, lane, g_mean2d, g_conic,
-                                 g_opacity, g_colors);
+        for (; k + kChunk <= n_list; k += kChunk)
+          backward_records<kChunk, P>(cur, list + k, px, py, voting, t, s, gr,
+                                      gg, gb, gsum, lane, part, acc, touch);
+        for (; k < n_list; ++k)
+          backward_records<1, P>(cur, list + k, px, py, voting, t, s, gr, gg,
+                                 gb, gsum, lane, part, acc, touch);
         done = 1;
 #pragma unroll
         for (int i = 0; i < P; ++i) done &= t[i] < kTMin;
       }
-      if (__syncthreads_count(done) == kThreads) break;
+      const int n_done = __syncthreads_count(done);
+      // the block's sums of this batch: one thread a record, three vector
+      // atomics into its Gaussian's packed gradient if some warp touched it
+      if (tid < n && s_touch[tid] != 0) {
+        const uint32_t touched = s_touch[tid];
+        float4 sum[kGradStride / 4];
+#pragma unroll
+        for (int q = 0; q < kGradStride / 4; ++q)
+          sum[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          if (((touched >> (8 * w)) & 0xffu) == 0) continue;
+          const float4* v = reinterpret_cast<const float4*>(s_acc[w][tid]);
+#pragma unroll
+          for (int q = 0; q < kGradStride / 4; ++q) {
+            const float4 u = v[q];
+            sum[q].x += u.x;
+            sum[q].y += u.y;
+            sum[q].z += u.z;
+            sum[q].w += u.w;
+          }
+        }
+        static_assert(kGradOpacity == 3 && kGradMean == 4 && kGradConic == 6,
+                      "opacity, mean and conic at sum[0].w, sum[1], sum[2].x");
+        // dL/do = sum(dL/dalpha alpha) / opacity
+        sum[0].w = __fdividef(sum[0].w, flush_o);
+        // read before this thread stages batch b + 2 into the buffer
+        gradient_of_moments(cur[tid], sum[1], sum[2]);
+        float* dst = grad + static_cast<int64_t>(flush_g) * kGradStride;
+#pragma unroll
+        for (int q = 0; q < kGradStride / 4; ++q)
+          red_add_v4(dst + 4 * q, sum[q]);
+        s_touch[tid] = 0;
+      }
+      if (n_done == kThreads) break;
     }
     cp_async_wait_all();
     if (tid == 0) s_slot = sc.pull(n_tiles);
@@ -823,15 +1073,18 @@ extern "C" int tile_blend_forward(
 // Launches order_kernel, then backward_kernel, on `stream` without
 // synchronising: adds the gradient of the image `out` that
 // tile_blend_forward made from the same inputs, given grad_out =
-// dL/d(out), into g_mean2d [N, 2], g_conic [N, 3], g_opacity [N] and
-// g_colors [N, 3], which the caller zeroes. `sched` as for the forward.
+// dL/d(out), into the packed grad [N, 12] (16-byte aligned rows: colors at
+// 0, opacity at 3, mean2d at 4, conic at 6, a pad of 3), which the caller
+// zeroes. `sched` as for the forward.
 extern "C" int tile_blend_backward(
     const int32_t* tile_start, const int32_t* pair_gauss, const float* mean2d,
     const float* conic, const float* opacity, const float* colors,
     const float* out, const float* grad_out, int n_tiles, int tiles_x,
-    int height, int width, int max_k, int32_t* sched, float* g_mean2d,
-    float* g_conic, float* g_opacity, float* g_colors, void* stream) {
+    int height, int width, int max_k, int32_t* sched, float* grad,
+    void* stream) {
   if (n_tiles <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(grad) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   int per_sm = 0, rc = 0;
   const int blocks = grid_blocks(1, n_tiles, &per_sm, &rc);
   if (rc != 0) return rc;
@@ -842,7 +1095,6 @@ extern "C" int tile_blend_backward(
   if (rc != 0) return rc;
   backward_kernel<<<blocks, kThreads, 0, s>>>(
       tile_start, pair_gauss, mean2d, conic, opacity, colors, out, grad_out,
-      n_tiles, tiles_x, height, width, max_k, sched, g_mean2d, g_conic,
-      g_opacity, g_colors);
+      n_tiles, tiles_x, height, width, max_k, sched, grad);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,7 +31,7 @@ class BuiltLibrary:
         self.lib = lib
         self.path = path
         self.seconds = seconds  # 0.0 when an existing build was reused
-        self.log = log
+        self.log = log  # nvcc's output, also when a build was reused
 
 
 _loaded: dict[str, BuiltLibrary] = {}
@@ -64,7 +64,9 @@ def load_source(src: Path) -> BuiltLibrary:
     src = Path(src)
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}-{digest}.so"
-    seconds, log = 0.0, ""
+    log_path = out.with_name(f"{out.name}.log")  # nvcc's report, kept for reuse
+    seconds = 0.0
+    log = log_path.read_text() if log_path.exists() else ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -77,6 +79,7 @@ def load_source(src: Path) -> BuiltLibrary:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed on {src} "
                                f"(exit {proc.returncode}):\n{log}")
+        log_path.write_text(log)
         os.replace(tmp, out)
     built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
     _loaded[key] = built

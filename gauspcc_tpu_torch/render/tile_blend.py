@@ -43,6 +43,12 @@ launches = 0
 backward_launches = 0
 ALPHA_MAX = 0.99
 F32_ULP = 2.0 ** -24  # unit roundoff of float32
+# The backward kernel's packed gradient [N, GRAD_STRIDE] (16-byte rows, so
+# each record takes three vector atomics): each part's (offset, width); the
+# last 3 floats of a row are padding.
+GRAD_STRIDE = 12
+GRAD_PARTS = {"colors": (0, 3), "opacity": (3, 1), "mean2d": (4, 2),
+              "conic": (6, 3)}
 
 
 def kernel_tolerance(bg: torch.Tensor, colors: torch.Tensor) -> tuple[float, float]:
@@ -237,7 +243,7 @@ def _library():
             ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
         lib.tile_blend_forward.restype = ctypes.c_int
         lib.tile_blend_backward.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+            ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
         lib.tile_blend_backward.restype = ctypes.c_int
         lib.tile_blend_launch_shape.argtypes = [ctypes.c_int, ctypes.c_int,
                                                 ctypes.c_void_p]
@@ -334,8 +340,9 @@ def blend_tiles_backward(tile_start: torch.Tensor, pair_gauss: torch.Tensor,
     of the blend whose image is `out` [3, H, W], for grad_out = dL/d(out).
 
     The backward kernel on CUDA tensors (counted in `backward_launches`),
-    which reads bg's part of the image from `out`; autograd through
-    `blend_tiles_reference` on CPU tensors."""
+    which reads bg's part of the image from `out` and adds every gradient
+    into one packed buffer, returned as views (`unpack_gradients`);
+    autograd through `blend_tiles_reference` on CPU tensors."""
     global backward_launches
     kw = dict(tiles_x=tiles_x, height=height, width=width, max_k=max_k)
     if mean2d.device.type == "cpu":
@@ -354,18 +361,28 @@ def blend_tiles_backward(tile_start: torch.Tensor, pair_gauss: torch.Tensor,
     args = [t.contiguous() for t in (tile_start, pair_gauss, mean2d, conic,
                                      opacity, colors, out, grad_out)]
     dev = mean2d.device
-    grads = [torch.zeros_like(t) for t in args[2:6]]
+    packed = torch.zeros((mean2d.shape[0], GRAD_STRIDE), dtype=torch.float32,
+                         device=dev)
     sched = torch.empty(schedule_words(n_tiles), dtype=torch.int32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tile_blend_backward(
             *[t.data_ptr() for t in args], n_tiles, tiles_x, height, width,
-            max_k, sched.data_ptr(), *[g.data_ptr() for g in grads], stream)
+            max_k, sched.data_ptr(), packed.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"tile_blend backward launch failed: CUDA error {rc}")
     backward_launches += 1
-    return tuple(grads)
+    return unpack_gradients(packed)
+
+
+def unpack_gradients(packed: torch.Tensor):
+    """Views of the backward kernel's packed gradient [N, GRAD_STRIDE]:
+    (mean2d [N, 2], conic [N, 3], opacity [N], colors [N, 3])."""
+    def part(name):
+        at, width = GRAD_PARTS[name]
+        return packed[:, at] if width == 1 else packed[:, at:at + width]
+    return tuple(part(name) for name in ("mean2d", "conic", "opacity", "colors"))
 
 
 def blend_backward_reference(tile_start, pair_gauss, mean2d, conic, opacity,

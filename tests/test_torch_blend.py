@@ -202,6 +202,154 @@ def test_wrapper_constants_match_the_kernel_source():
     assert constant("kTile") == tile_blend.TILE
 
 
+def test_wrapper_packed_gradient_layout_matches_the_kernel_source():
+    """The wrapper's views of the backward's packed gradient use the
+    kernel's own stride and part offsets; the parts tile the kernel's
+    partials without overlap, and a row is whole 16-byte vectors."""
+    src = (Path(tile_blend.__file__).parents[1] / "csrc" / "tile_blend.cu"
+           ).read_text()
+
+    def constant(name):
+        found = re.findall(rf"constexpr int {name} = (\d+);", src)
+        assert len(found) == 1, name
+        return int(found[0])
+
+    assert constant("kGradStride") == tile_blend.GRAD_STRIDE
+    assert tile_blend.GRAD_STRIDE % 4 == 0
+    for name, kernel_name in (("colors", "kGradColors"),
+                              ("opacity", "kGradOpacity"),
+                              ("mean2d", "kGradMean"),
+                              ("conic", "kGradConic")):
+        assert tile_blend.GRAD_PARTS[name][0] == constant(kernel_name), name
+    covered = sorted(i for at, width in tile_blend.GRAD_PARTS.values()
+                     for i in range(at, at + width))
+    assert covered == list(range(constant("kPartials")))
+
+
+@pytest.mark.parametrize("n", [1, 5, 7])
+def test_unpack_gradients_gives_views_in_autograd_shapes(n):
+    """The packed [N, 12] buffer's views are the gradients of mean2d [N, 2],
+    conic [N, 3], opacity [N] and colors [N, 3], each at its part's offset,
+    sharing the buffer; autograd takes them as a Function's gradients."""
+    packed = torch.arange(n * tile_blend.GRAD_STRIDE, dtype=torch.float32
+                          ).reshape(n, tile_blend.GRAD_STRIDE)
+    mean2d, conic, opacity, colors = tile_blend.unpack_gradients(packed)
+    assert (mean2d.shape, conic.shape, opacity.shape, colors.shape) == (
+        (n, 2), (n, 3), (n,), (n, 3))
+    for got, name in ((mean2d, "mean2d"), (conic, "conic"),
+                      (opacity, "opacity"), (colors, "colors")):
+        at, width = tile_blend.GRAD_PARTS[name]
+        want = packed[:, at:at + width].reshape(got.shape)
+        assert torch.equal(got, want), name
+        assert got.untyped_storage().data_ptr() == packed.untyped_storage(
+        ).data_ptr(), name
+
+    class Packed(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, m, c, o, col):
+            return m.sum() + c.sum() + o.sum() + col.sum()
+
+        @staticmethod
+        def backward(ctx, grad):
+            return tile_blend.unpack_gradients(packed * grad)
+
+    leaves = [torch.zeros(s, requires_grad=True)
+              for s in ((n, 2), (n, 3), (n,), (n, 3))]
+    Packed.apply(*leaves).backward()
+    for leaf, want in zip(leaves, (mean2d, conic, opacity, colors)):
+        assert torch.equal(leaf.grad, want)
+
+
+def _halving_schedule(values):
+    """The backward's warp reduction (tile_blend.cu, ReducePipe and
+    reduced_part) replayed on 32 lanes' vectors [32, 9] in float64: halving
+    at lane offsets 16, 8, 4, 2 (9 -> 5 -> 3 -> 2 -> 1 values), then a
+    butterfly at 1. Returns each lane's value and the partial it stores
+    (-1 for none)."""
+    v = [list(map(float, row)) for row in values]
+    lengths = [len(v[0])]
+    for off in (16, 8, 4, 2):
+        n = len(v[0])
+        h = (n + 1) // 2
+        nxt = []
+        for lane in range(32):
+            mine, theirs = v[lane], v[lane ^ off]
+            row = []
+            for j in range(h):
+                lo, hi = mine[j], mine[j + h] if j + h < n else 0.0
+                p_lo, p_hi = theirs[j], theirs[j + h] if j + h < n else 0.0
+                row.append(hi + p_hi if lane & off else lo + p_lo)
+            nxt.append(row)
+        v = nxt
+        lengths.append(h)
+    lengths.append(1)
+    got = [v[lane][0] + v[lane ^ 1][0] for lane in range(32)]
+    parts = []
+    for lane in range(32):
+        pos = 0
+        for step in range(4, -1, -1):
+            if lane & (16 >> step):
+                pos += (lengths[step] + 1) // 2
+            if pos >= lengths[step]:
+                pos = -1
+                break
+        parts.append(pos)
+    return got, parts
+
+
+def test_recursive_halving_leaves_each_partial_summed_in_one_lane():
+    """The schedule of the backward's transposed warp reduction of a
+    record's 9 partials, 12 shuffles (5 + 3 + 2 + 1 + 1): each partial's
+    warp sum is stored by exactly one lane, which holds it."""
+    vals = np.random.default_rng(0).normal(size=(32, 9))
+    got, parts = _halving_schedule(vals)
+    assert sorted(p for p in parts if p >= 0) == list(range(9))
+    want = vals.sum(0)
+    for lane in range(32):
+        if parts[lane] >= 0:
+            assert abs(got[lane] - want[parts[lane]]) < 1e-12
+
+
+def _quadrant_blended(tile_start, pair_gauss, mean2d, conic, opacity, *,
+                     tiles_x: int, max_k: int) -> torch.Tensor:
+    """[entries, 4] bool in chip_smoke.quadrant_reach's order: whether some
+    pixel of the quadrant blends the entry, by the plain version."""
+    counts = (tile_start[1:] - tile_start[:-1]).clamp_max(max_k)
+    pix = torch.arange(tile_blend.PIX, device=mean2d.device)
+    quad = (pix // tile_blend.TILE // 8) * 2 + pix % tile_blend.TILE // 8
+    out = []
+    for c0, c1, alpha, t_before, _, _ in tile_blend._alpha_chunks(
+            tile_start, pair_gauss, mean2d, conic, opacity, tiles_x, max_k):
+        blended = (t_before >= tile_blend.T_MIN) & (alpha > 0)  # [C, 256, K]
+        per_q = torch.stack([blended[:, quad == q].any(1) for q in range(4)],
+                            -1)  # [C, K, 4]
+        keep = torch.arange(max_k, device=mean2d.device)[None, :] < counts[
+            c0:c1, None]
+        out.append(per_q[keep])
+    return torch.cat(out) if out else torch.zeros((0, 4), dtype=torch.bool)
+
+
+@pytest.mark.parametrize("lists", ["random", "thin at the cut"])
+def test_quadrant_bound_keeps_every_quadrant_an_entry_is_blended_in(lists):
+    """The backward leaves an entry out of a quadrant's walk only where its
+    alpha cannot reach 1/255 (tile_blend.cu, quadrant_mask, mirrored by
+    chip_smoke.quadrant_reach): every (entry, quadrant) that the plain
+    version blends is inside the bound, which also leaves some out."""
+    if lists == "random":
+        args = chip_smoke.random_tiles(torch.Generator().manual_seed(4), "cpu",
+                                       4, 3, 64)
+        kw = dict(tiles_x=4, max_k=64)
+    else:
+        args = chip_smoke.cut_lists("cpu", 6, 4)
+        kw = dict(tiles_x=6, max_k=4)
+    reach = chip_smoke.quadrant_reach(*args[:5], **kw)
+    blended = _quadrant_blended(*args[:5], **kw)
+    assert reach.shape == blended.shape and bool(blended.any())
+    assert not bool((blended & ~reach).any())
+    if lists == "random":
+        assert not bool(reach.all())
+
+
 def _walk_gradients(args, grad_out, tiles_x, height, width, max_k):
     """The backward kernel's arithmetic, per pixel in float64: the forward
     with its early stop, then each list front to back with S_j and G = out

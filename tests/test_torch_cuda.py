@@ -315,3 +315,186 @@ def test_rasterize_gradients_on_card_match_cpu(cuda_device):
     for name, a, b in zip(arrays, grads["cpu"], grads[str(cuda_device)]):
         scale = float(a.abs().max())
         torch.testing.assert_close(b, a, rtol=0, atol=1e-3 * scale, msg=name)
+
+
+def _explicit(device, lists, mean2d, conic, opacity, seed=0):
+    """Tile lists given per tile (lists of Gaussian indices, front to
+    back) over the given Gaussians, with seeded colours and background."""
+    gen = torch.Generator().manual_seed(seed)
+    n = len(mean2d)
+    counts = torch.tensor([len(ids) for ids in lists])
+    f32 = dict(dtype=torch.float32)
+    return (torch.cat([torch.zeros(1, dtype=torch.long), counts.cumsum(0)]
+                      ).int().to(device),
+            torch.tensor([i for ids in lists for i in ids], dtype=torch.int32
+                         ).to(device),
+            torch.tensor(mean2d, **f32).to(device),
+            torch.tensor(conic, **f32).to(device),
+            torch.tensor(opacity, **f32).to(device),
+            torch.rand(n, 3, generator=gen).to(device),
+            torch.rand(3, generator=gen).to(device))
+
+
+def _blended(args, tiles_x, max_k):
+    """[T, 256, K] whether each pixel of each tile blends each list entry,
+    by the plain version."""
+    out = []
+    for _, _, alpha, t_before, _, _ in tile_blend._alpha_chunks(
+            *args[:5], tiles_x, max_k):
+        out.append((t_before >= tile_blend.T_MIN) & (alpha > 0))
+    return torch.cat(out).cpu()
+
+
+# the backward's warp of each pixel of a tile: its 8x8 quadrant (w % 2, w // 2)
+_WARP_OF_PIXEL = (torch.arange(256) // 16 // 8) * 2 + torch.arange(256) % 16 // 8
+
+
+@pytest.mark.cuda
+def test_backward_every_warp_blends_every_record(cuda_device):
+    """Wide, faint Gaussians over their tile: every pixel blends every
+    record, so all 4 warps of a block add their sums of each record and
+    the flush combines 4 slices."""
+    tiles_x, per_tile = 2, 40
+    mean2d, lists = [], []
+    for tile in range(4):
+        cx, cy = (tile % tiles_x) * 16 + 7.5, (tile // tiles_x) * 16 + 7.5
+        lists.append(list(range(len(mean2d), len(mean2d) + per_tile)))
+        mean2d += [[cx + 0.1 * j, cy - 0.05 * j] for j in range(per_tile)]
+    n = len(mean2d)
+    args = _explicit(cuda_device, lists, mean2d, [[1e-4, 0.0, 1e-4]] * n,
+                     [0.05 + 0.0005 * j for j in range(n)])
+    kw = dict(tiles_x=tiles_x, height=32, width=32, max_k=64)
+    assert bool(_blended(args, tiles_x, 64)[:, :, :per_tile].all())
+    _check_kernel(args, **kw)
+
+
+@pytest.mark.cuda
+def test_backward_record_touched_by_one_warp(cuda_device):
+    """Point-like Gaussians 0.2 px off single pixels (conic 20: alpha 0.5
+    exp(-6.8) at the nearest other pixel, below 1/255): each record is
+    blended by one pixel, so one warp of the block (one quadrant) stores
+    its sum and the flush reads one slice."""
+    tiles_x = 2
+    mean2d, lists = [], []
+    for tile in range(4):
+        x0, y0 = (tile % tiles_x) * 16, (tile // tiles_x) * 16
+        ids = []
+        for j in range(32):  # rows 0..15 twice, columns spread
+            ids.append(len(mean2d))
+            mean2d.append([x0 + (3 * j + j // 16 + tile) % 16 + 0.2,
+                           y0 + j % 16 + 0.2])
+        lists.append(ids)
+    n = len(mean2d)
+    args = _explicit(cuda_device, lists, mean2d, [[20.0, 0.0, 20.0]] * n,
+                     [0.5] * n, seed=1)
+    blended = _blended(args, tiles_x, 64)[:, :, :32]  # [T, 256, 32]
+    for w in range(4):
+        assert int(blended[:, _WARP_OF_PIXEL == w].any(1).sum()) > 0
+    per_record = torch.stack([blended[:, _WARP_OF_PIXEL == w].any(1)
+                              for w in range(4)]).sum(0)
+    assert bool((per_record == 1).all())
+    _check_kernel(args, tiles_x=tiles_x, height=32, width=32, max_k=64)
+
+
+@pytest.mark.cuda
+def test_backward_one_gaussian_in_every_tile(cuda_device):
+    """One wide Gaussian first in every tile's list, then local ones: every
+    block's flush adds into the same Gaussian's gradient."""
+    tiles_x, tiles_y = 8, 5
+    gen = torch.Generator().manual_seed(7)
+    mean2d, conic, opacity = [[64.0, 40.0]], [[1e-4, 0.0, 1e-4]], [0.3]
+    lists = []
+    for tile in range(tiles_x * tiles_y):
+        x0, y0 = (tile % tiles_x) * 16, (tile // tiles_x) * 16
+        ids = [0]
+        for _ in range(12):
+            ids.append(len(mean2d))
+            u = torch.rand(2, generator=gen)
+            mean2d.append([x0 + 16 * float(u[0]), y0 + 16 * float(u[1])])
+            conic.append([0.1, 0.0, 0.1])
+            opacity.append(0.4)
+        lists.append(ids)
+    args = _explicit(cuda_device, lists, mean2d, conic, opacity, seed=2)
+    assert bool(_blended(args, tiles_x, 64)[:, :, 0].any(1).all())
+    _check_kernel(args, tiles_x=tiles_x, height=80, width=128, max_k=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [1, 2, 3])
+def test_backward_packed_gradient_when_n_is_not_a_multiple_of_4(cuda_device,
+                                                                extra):
+    """N = 4m + extra Gaussians: the packed [N, 12] buffer and its views
+    have autograd's shapes, and hold the gradient of the last Gaussian."""
+    gen = torch.Generator().manual_seed(extra)
+    counts = torch.full((20,), 10, dtype=torch.long)
+    counts[-1] += extra
+    args = _lists(gen, cuda_device, 5, counts, spread=16.0)
+    n = int(counts.sum())
+    assert n % 4 == extra
+    kw = dict(tiles_x=5, height=64, width=80, max_k=64)
+    out = tile_blend.blend_tiles(*args, **kw)
+    got = _check_backward(args, out, **kw)
+    for g, leaf in zip(got, args[2:6]):
+        assert g.shape == leaf.shape
+    base = got[0].untyped_storage().data_ptr()
+    assert all(g.untyped_storage().data_ptr() == base for g in got)
+    assert base % 16 == 0
+
+
+@pytest.mark.cuda
+def test_backward_skips_a_chunk_no_lane_touches(cuda_device):
+    """Each list: 8 Gaussians on the tile, 8 far off it (alpha below 1/255
+    at every pixel, a whole chunk of 8 records no lane blends), then 8 on
+    the tile again: the sums after the skipped chunk land on their own
+    records."""
+    tiles_x = 2
+    mean2d, lists = [], []
+    for tile in range(4):
+        x0, y0 = (tile % tiles_x) * 16, (tile // tiles_x) * 16
+        ids = []
+        for j in range(24):
+            ids.append(len(mean2d))
+            far = 8 <= j < 16
+            mean2d.append([x0 + 2 * (j % 8) + (300.0 if far else 1.0),
+                           y0 + 1.5 * (j % 8) + 2.0])
+        lists.append(ids)
+    n = len(mean2d)
+    args = _explicit(cuda_device, lists, mean2d, [[0.05, 0.01, 0.05]] * n,
+                     [0.3] * n, seed=3)
+    touched = _blended(args, tiles_x, 64).any(1)  # [T, K]
+    assert not bool(touched[:, 8:16].any())
+    assert bool(touched[:, :8].all()) and bool(touched[:, 16:24].all())
+    _check_kernel(args, tiles_x=tiles_x, height=32, width=32, max_k=64)
+
+
+@pytest.mark.cuda
+def test_backward_culls_quadrants_at_the_edge_of_reach(cuda_device):
+    """Round Gaussians beside a quadrant's edge whose alpha at the nearest
+    pixel of the next quadrant lies just above or just below 1/255: the
+    quadrants the backward leaves out of a record's walk (quadrant_mask)
+    are only ones where it blends no pixel."""
+    tiles_x = 2
+    rng = np.random.default_rng(11)
+    mean2d, conic, opacity, lists = [], [], [], []
+    for tile in range(4):
+        x0, y0 = (tile % tiles_x) * 16, (tile // tiles_x) * 16
+        ids = []
+        for j in range(24):
+            ids.append(len(mean2d))
+            # the mean on a pixel row, 0.5-3 px left of column 8 (quadrant 0
+            # side): alpha at column 8 = opacity exp(-c d^2 / 2), set to
+            # 1/255 times 1.001 (blended), 0.999 (dropped, walked) or 0.99
+            # (dropped, and the next quadrant left out of the walk)
+            d = rng.uniform(0.5, 3.0)
+            c = rng.uniform(0.5, 2.0)
+            mean2d.append([x0 + 8 - d, y0 + float(rng.integers(0, 16))])
+            conic.append([c, 0.0, c])
+            target = (1 / 255) * np.exp(0.5 * c * d * d)
+            opacity.append(min(0.99, target * rng.choice([0.99, 0.999, 1.001])))
+        lists.append(ids)
+    args = _explicit(cuda_device, lists, mean2d, conic, opacity, seed=4)
+    touched = _blended(args, tiles_x, 64)[:, :, :24]  # [T, 256, 24]
+    right = torch.arange(256) % 16 >= 8
+    reach_right = touched[:, right].any(1)
+    assert 0 < int(reach_right.sum()) < reach_right.numel()
+    _check_kernel(args, tiles_x=tiles_x, height=32, width=32, max_k=64)
