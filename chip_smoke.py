@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch/CUDA port (`gauspcc_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--baseline FILE]
+    python3 chip_smoke.py --decode BIN --out NPY
 
 Phases, each printed with its wall time; any failure ends the run with a
 non-zero exit and no result line:
 
   device  the card's name and power limit (nvidia-smi); no CUDA -> exit 1
-  build   nvcc builds every kernel of the port from gauspcc_tpu_torch/csrc;
-          ptxas registers, shared memory and spills per kernel
+  build   nvcc builds every kernel of the port from gauspcc_tpu_torch/csrc,
+          one nvcc per source, all started together; ptxas registers,
+          shared memory and spills per kernel
   kernel  the tile-blend kernel against its plain PyTorch version on random
           tiles at K = 1024 (empty tiles, short ones, tiles over K); the
           backward kernel against autograd of the plain version, for a
@@ -44,6 +46,20 @@ non-zero exit and no result line:
   reference  the whole slice at small widths on a 64x64 scene, on the card
           and through the port's CPU path, compared: ground truth, eval
           renders, and 3 training steps at phase 0
+  codec   the GausPcgc geometry codec (sib engine, bf16) with the r5
+          weights (model/gauspcgc_r5/best_model.npz) on bench.py's
+          159,822-point cloud (a copy of `_bench_cloud`, seed 0):
+          `compress_point_cloud` on the card, timed with its per-level
+          geometry, context, stage-CDF and rANS times (CUDA events) and the
+          rANS encode kernel's launches; `decompress_point_cloud` in a fresh
+          process (this script with --decode), whose points must equal the
+          cloud and whose rANS decode kernel must have launched; bpp within
+          0.05 of the JAX package's 11.3381; one encode under
+          torch.profiler (busy, idle share, longest kernels); at the finest
+          level the conv GEMM's time and TFLOP/s, and both rANS kernels
+          against their plain versions bit for bit, on its real tables and
+          symbols and on seeded random tables (n_valid below the capacity
+          and 0), each stage timed beside its byte bound
 
 With --baseline FILE, an earlier tile_blend.cu is built and run on the
 thin Gaussians at the cut (its values outside the tolerance are reported,
@@ -59,7 +75,12 @@ stream) and tile_blend_backward(8 pointers, 5 ints, schedule scratch, the
 
 Then one JSON line per the port's kernels (launches, error, times, bound)
 and, last, {"ok": true, "device": {...}}. Nothing is written into the tree
-except the kernel build under gauspcc_tpu_torch/build/ (gitignored).
+except the kernel build under gauspcc_tpu_torch/build/ (gitignored); the
+codec's stream and decoded points go to a temporary directory.
+
+With --decode BIN --out NPY it only decodes BIN with the r5 weights, twice
+(the two must agree), saves the first decode's points to NPY and prints one
+JSON line with the decode times, the per-level profile and the launches.
 """
 
 from __future__ import annotations
@@ -69,20 +90,26 @@ import ctypes
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from gauspcc_tpu_torch import native
+from gauspcc_tpu_torch import convert, native
 from gauspcc_tpu_torch.cli import soak
+from gauspcc_tpu_torch.codecs.gauspcgc import codec as pcgc_codec
+from gauspcc_tpu_torch.codecs.gauspcgc import model as pcgc_model
+from gauspcc_tpu_torch.core import cdf
 from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.models.hac import pipeline
 from gauspcc_tpu_torch.models.hac import render as hac_render
 from gauspcc_tpu_torch.models.hac import train as hac_train
+from gauspcc_tpu_torch.ops import rans, sibconv, sparse
 from gauspcc_tpu_torch.render import raster, tile_blend
 from gauspcc_tpu_torch.utils import image as img_lib
 
@@ -138,6 +165,14 @@ TRAIN_DENSIFY = dict(start_stat=50, update_from=50, update_interval=100,
 REF_TRAIN_STEPS = 3
 REF_LOSS_RTOL = 1e-3
 REF_LEAF_RTOL = 0.02
+# codec phase: the r5 GausPcgc weights (tracked, so they reach the card)
+CODEC_WEIGHTS = Path(__file__).resolve().parent / "model" / "gauspcgc_r5" / "best_model.npz"
+# the JAX package's bpp on `bench.py:44` `_bench_cloud()` with these
+# weights (BENCH_r05.json, TPU, bf16): a compression figure, not a time
+CODEC_BPP_JAX = 11.3381
+CODEC_BPP_TOL = 0.05
+# random tables for the rANS kernels: (capacity, valid positions)
+RANS_RANDOM_CASES = ((16384, 11_111), (16384, 0), (2048, 2047))
 
 
 def log(msg: str) -> None:
@@ -433,7 +468,9 @@ def ptxas_lines(build_log: str) -> list[str]:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = next((k for k in ("backward_kernel", "blend_kernel",
-                                     "order_kernel") if k in mangled), mangled)
+                                     "order_kernel", "encode_stage_kernel",
+                                     "decode_stage_kernel") if k in mangled),
+                        mangled)
         elif "registers" in line or "spill" in line:
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -637,14 +674,349 @@ def tile_records(tile_start, pair_gauss, mean2d, conic, opacity, *,
     return total
 
 
+def bench_cloud() -> np.ndarray:
+    """A copy of bench.py:44-52 `_bench_cloud()`: an anchor-like clustered
+    cloud of 159,822 voxels, seed 0."""
+    rng = np.random.default_rng(0)
+    centers = rng.integers(0, 4000, size=(200, 3))
+    pts = centers[rng.integers(0, len(centers), 160_000)] + rng.normal(
+        0, 20, (160_000, 3)
+    )
+    return np.unique(np.round(pts), axis=0).astype(np.int64)
+
+
+def rans_stage_ms(tables, n_valid: int, words=None, syms=None,
+                  reps: int = 3) -> list[float]:
+    """Device ms of each of one level's four rANS stage launches (indexed
+    by stage), the encode kernel when `syms` is given, else the decode
+    kernel on `words`: CUDA events around each launch, queued behind a
+    delay kernel so that no event waits for the host, mean of `reps` runs
+    from a fresh carry."""
+    encode = syms is not None
+    cap = tables[0].shape[0]
+    total = [0.0] * 4
+    for _ in range(reps):
+        if encode:
+            carry = rans.enc_init(cap, device=tables[0].device)
+        else:
+            carry = rans.dec_init(words)
+            prev = torch.zeros(cap, dtype=torch.int32, device=words.device)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(DELAY_CYCLES // 50)
+        marks = []
+        for stage in ((3, 2, 1, 0) if encode else range(4)):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            if encode:
+                carry = rans.encode_stage(carry, tables[stage], syms[stage], n_valid)
+            else:
+                carry, _, prev = rans.decode_stage(carry, tables[stage], words,
+                                                   n_valid, prev, stage)
+            e1.record()
+            marks.append((stage, e0, e1))
+        torch.cuda.synchronize()
+        for stage, e0, e1 in marks:
+            total[stage] += e0.elapsed_time(e1) / reps
+    return total
+
+
+def rans_encode_all(tables, syms, n_valid, plain: bool):
+    """The four encode stages (3..0) of one level from a fresh carry, by
+    the kernel or its plain version -> (state, n_words, words)."""
+    carry = rans.enc_init(tables[0].shape[0], device=tables[0].device)
+    step = rans.encode_stage_reference if plain else rans.encode_stage
+    for stage in (3, 2, 1, 0):
+        carry = step(carry, tables[stage], syms[stage], n_valid)
+    return carry
+
+
+def rans_decode_all(tables, words, n_valid, plain: bool):
+    """The four decode stages (0..3) -> (state, ptr, syms per stage, prev)."""
+    carry = rans.dec_init(words)
+    prev = torch.zeros(tables[0].shape[0], dtype=torch.int32, device=words.device)
+    out = []
+    for stage in range(4):
+        if plain:
+            carry, s = rans.decode_stage_reference(carry, tables[stage], words,
+                                                   n_valid)
+            prev = rans.advance_prev(prev, s, stage)
+        else:
+            carry, s, prev = rans.decode_stage(carry, tables[stage], words,
+                                               n_valid, prev, stage)
+        out.append(s)
+    return carry[0], carry[1], out, prev
+
+
+def check_rans(label: str, tables, syms, n_valid: int) -> dict:
+    """Both rANS kernels against their plain versions on the card, bit for
+    bit: the encode's state, word counts and words (before and after the
+    flush), then the decode of the packed stream (state, pointer, every
+    stage's symbols, the fused prev). Returns the words (reversed, padded)
+    for timing."""
+    cap = tables[0].shape[0]
+    got = rans_encode_all(tables, syms, n_valid, plain=False)
+    torch.cuda.synchronize()
+    want = rans_encode_all(tables, syms, n_valid, plain=True)
+    for name, a, b in zip(("state", "n_words", "words"), got, want):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"rans encode {label}: {name} differs from the "
+                               f"plain version")
+    words, n_words = rans.enc_flush(got)
+    stream = rans.pack_stream(words.cpu().numpy(), n_words.cpu().numpy())
+    w_np, _ = rans.unpack_stream(stream, rans.word_capacity(cap))
+    dwords = torch.as_tensor(w_np, device=tables[0].device)
+    dg = rans_decode_all(tables, dwords, n_valid, plain=False)
+    torch.cuda.synchronize()
+    dw = rans_decode_all(tables, dwords, n_valid, plain=True)
+    for name, a, b in (("state", dg[0], dw[0]), ("ptr", dg[1], dw[1]),
+                       ("prev", dg[3], dw[3])):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"rans decode {label}: {name} differs from the "
+                               f"plain version")
+    for stage in range(4):
+        if not torch.equal(dg[2][stage], dw[2][stage]):
+            raise RuntimeError(f"rans decode {label}: stage {stage} symbols "
+                               f"differ from the plain version")
+        if not torch.equal(dg[2][stage][:n_valid], syms[stage][:n_valid]):
+            raise RuntimeError(f"rans {label}: stage {stage} decodes other "
+                               f"symbols than were coded")
+    log(f"  rans {label}: cap {cap}, {rans.lane_count(cap)} lanes x "
+        f"{cap // rans.lane_count(cap)} steps, n_valid {n_valid}, "
+        f"{len(stream)} B: encode and decode kernels equal to the plain "
+        f"versions bit for bit, symbols decoded")
+    return {"words": dwords, "n_words": n_words, "stream_bytes": len(stream)}
+
+
+def random_rans_inputs(gen: torch.Generator, cap: int, dev):
+    """Seeded tables (from random probabilities) and symbols, per stage."""
+    tables, syms = [], []
+    for n_sym in pcgc_model.STAGE_SIZES:
+        logits = torch.randn((cap, n_sym), generator=gen) * 3.0
+        probs = torch.softmax(logits, -1)
+        tables.append(cdf.probs_to_cdf_int16(probs).to(dev))
+        syms.append(torch.multinomial(probs, 1, generator=gen)[:, 0]
+                    .to(torch.int32).to(dev))
+    return tables, syms
+
+
+def rans_bytes(tables, n_valid: int, encode: bool, words_moved: int) -> int:
+    """Bytes one level's four stages must move: per valid position its
+    symbol and the two table entries it needs on encode, or its whole row
+    on decode (the search reads it), plus the words written or read, and on
+    decode the symbols and prev written and prev read (int32 each)."""
+    total = 4 * words_moved
+    for stage, t in enumerate(tables):
+        cap, lp = t.shape
+        if encode:
+            total += n_valid * (4 + 8)
+        else:
+            total += n_valid * 4 * lp + cap * 4 * (2 if stage == 0 else 3)
+    return total
+
+
+def decode_main(bin_path: str, out_path: str) -> int:
+    """--decode: decode `bin_path` in this fresh process on the card, twice
+    (both must agree), save the first decode's points to `out_path` and
+    print one JSON line with the times, the per-level profile of the second
+    and its rANS decode launches."""
+    dev = torch.device("cuda")
+    net = convert.load_codec_npz(CODEC_WEIGHTS, device=dev)
+    t0 = time.perf_counter()
+    first = pcgc_codec.decompress_point_cloud(bin_path, net, device=dev)
+    first_s = time.perf_counter() - t0
+    np.save(out_path, first["point_cloud"])
+    rans.decode_launches = 0
+    profile = []
+    t0 = time.perf_counter()
+    second = pcgc_codec.decompress_point_cloud(bin_path, net, device=dev,
+                                               profile=profile)
+    second_s = time.perf_counter() - t0
+    launches = rans.decode_launches
+    if not np.array_equal(first["point_cloud"], second["point_cloud"]):
+        raise RuntimeError("two decodes of one stream in one process differ")
+    print(json.dumps({"first_s": first_s, "dec_s": second_s,
+                      "dec_time": second["dec_time"],
+                      "num_points": second["num_points"],
+                      "launches": launches, "profile": profile}), flush=True)
+    return 0
+
+
+def codec_phase(dev) -> list[dict]:
+    """The GausPcgc codec on the bench cloud with the r5 weights; returns
+    the kernel rows of rans_encode and rans_decode."""
+    cfg = pcgc_model.NetConfig()
+    net = convert.load_codec_npz(CODEC_WEIGHTS, cfg, device=dev)
+    pts = bench_cloud()
+    log(f"  bench cloud: {pts.shape[0]} points; r5 weights {CODEC_WEIGHTS.name}, "
+        f"{cfg}")
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "bench.bin")
+        t0 = time.perf_counter()
+        pcgc_codec.compress_point_cloud(pts, net, path, config=cfg, device=dev)
+        log(f"  first encode (cuBLAS and kernel set-up included): "
+            f"{time.perf_counter() - t0:.3f} s")
+        torch.cuda.reset_peak_memory_stats()
+        rans.encode_launches = 0
+        profile = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pcgc_codec.compress_point_cloud(pts, net, path, config=cfg,
+                                              device=dev, profile=profile)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        enc_launches = rans.encode_launches
+        log(f"  encode: {enc_s:.4f} s wall ({pts.shape[0] / enc_s:.1f} points/s), "
+            f"{out['file_size_bits']} bits, bpp {out['bpp']:.4f}, peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"rans_encode launches {enc_launches}")
+        if enc_launches == 0:
+            raise RuntimeError("the encode did not launch the rans encode kernel")
+        for d, lvl in enumerate(profile):
+            log(f"  encode level {d}: n_child {lvl['n_child']}, ccap {lvl['ccap']}: "
+                f"geometry {lvl['geometry']:.3f} ms, context {lvl['context']:.3f} "
+                f"ms, stage CDFs {lvl['cdf']:.3f} ms, rans {lvl['rans']:.3f} ms "
+                f"(CUDA events)")
+
+        # decode in a fresh process on the card
+        out_npy = str(Path(tmp) / "decoded.npy")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--decode", path, "--out", out_npy],
+                              capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"the decoding process failed (exit "
+                               f"{proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        dec = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = np.load(out_npy)
+        want_rows = np.unique(pts, axis=0)
+        got_rows = np.unique(got.astype(np.int64), axis=0)
+        if dec["num_points"] != pts.shape[0] or got.shape[0] != pts.shape[0] \
+                or not np.array_equal(got_rows, want_rows):
+            raise RuntimeError(f"lossy decode: {got.shape[0]} points decoded of "
+                               f"{pts.shape[0]}")
+        dec_launches = dec["launches"]
+        log(f"  decode in a fresh process ({child_s:.3f} s with start-up): "
+            f"lossless, {dec['num_points']} points; first decode "
+            f"{dec['first_s']:.4f} s, second {dec['dec_s']:.4f} s wall "
+            f"({pts.shape[0] / dec['dec_s']:.1f} points/s), rans_decode "
+            f"launches {dec_launches}")
+        if dec_launches == 0:
+            raise RuntimeError("the decode did not launch the rans decode kernel")
+        for d, lvl in enumerate(dec["profile"]):
+            log(f"  decode level {d}: n_child {lvl['n_child']}, ccap "
+                f"{lvl['ccap']}: geometry {lvl['geometry']:.3f} ms, context "
+                f"{lvl['context']:.3f} ms, stage CDFs and rans "
+                f"{lvl['cdf_and_rans']:.3f} ms (CUDA events)")
+        log(f"  bpp {out['bpp']:.4f} against the JAX package's {CODEC_BPP_JAX} "
+            f"(limit +-{CODEC_BPP_TOL})")
+        if not abs(out["bpp"] - CODEC_BPP_JAX) <= CODEC_BPP_TOL:
+            raise RuntimeError(f"bpp {out['bpp']:.4f} outside {CODEC_BPP_JAX} "
+                               f"+- {CODEC_BPP_TOL}")
+
+        # one encode under torch.profiler
+        def encode():
+            pcgc_codec.compress_point_cloud(pts, net, path, config=cfg, device=dev)
+        wall = float(np.median(wall_ms(encode, 3)))
+        busy, n_act, top = device_profile(encode)
+        log(f"  one encode under torch.profiler: {n_act} device activities, busy "
+            f"{busy:.3f} ms of a median wall clock of {wall:.3f} ms (idle share "
+            f"{1 - busy / wall:.4f})")
+        for name, count, ms in top:
+            log(f"    {ms:9.3f} ms  {count:5d}x  {name[:100]}")
+
+    # the finest level: the conv GEMM and both rANS kernels on its tables
+    levels = sparse.build_occupancy_pyramid(
+        sparse.dedupe_lex(pts - pts.min(axis=0)), min_points=pcgc_codec.MIN_BASE_POINTS,
+        sorted_unique=True)
+    depth = len(levels) - 2
+    pc, po = levels[depth]
+    c_coords, c_occ = levels[depth + 1]
+    with torch.no_grad(), pcgc_codec._exact_gemms():
+        g = pcgc_codec._SibLevelGeometry(
+            torch.as_tensor(pc, device=dev), torch.as_tensor(po.astype(np.int64), device=dev),
+            c_coords.shape[0])
+        cf = pcgc_codec._context_sib(net, cfg, g)
+        tables, syms = pcgc_codec._encode_tables(
+            net, g, cf, torch.as_tensor(c_occ.astype(np.int32), device=dev))
+        groups = g.c_gmapT.shape[0]
+        k_dim = 27 * 8 * cfg.channels
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        xg = torch.randn((groups, k_dim), generator=gen, device=dev).to(torch.bfloat16)
+        wm = net.target_resnet.conv.conv_matrix(torch.bfloat16)
+        gemm_ms = cuda_ms(lambda: torch.matmul(xg, wm), 10)
+        flop = 2.0 * groups * k_dim * wm.shape[1]
+        x = torch.randn((groups * 8, cfg.channels), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        index = sibconv.gather_index(g.c_gmapT)
+        conv_ms = cuda_ms(lambda: net.target_resnet.conv(x, index, g.cmask8), 10)
+        del xg
+    log(f"  finest level: {g.n_parents} parents, {g.n_child} children (ccap "
+        f"{g.ccap}), conv at G = {groups} groups: the [G, {k_dim}] x [{k_dim}, "
+        f"{wm.shape[1]}] bf16 GEMM {gemm_ms:.4f} ms = {flop / gemm_ms / 1e9:.1f} "
+        f"TFLOP/s ({flop / 1e12:.3f} TFLOP); one whole conv (gather, GEMM, bias, "
+        f"mask) {conv_ms:.4f} ms")
+
+    n = g.n_child
+    real = check_rans("finest level's tables", tables, syms, n)
+    gen = torch.Generator().manual_seed(SEED)
+    for cap, n_valid in RANS_RANDOM_CASES:
+        t_r, s_r = random_rans_inputs(gen, cap, dev)
+        check_rans("random tables", t_r, s_r, n_valid)
+
+    steps = g.ccap // rans.lane_count(g.ccap)
+    enc_stage_ms = rans_stage_ms(tables, n, syms=syms)
+    dec_stage_ms = rans_stage_ms(tables, n, words=real["words"])
+    enc_ms, dec_ms = sum(enc_stage_ms), sum(dec_stage_ms)
+    enc_plain = cuda_ms(lambda: rans_encode_all(tables, syms, n, plain=True), 2)
+    dec_plain = cuda_ms(lambda: rans_decode_all(tables, real["words"], n, plain=True), 2)
+    words_total = int(real["n_words"].sum())
+    enc_bytes = rans_bytes(tables, n, True, words_total - 2 * rans.lane_count(g.ccap))
+    dec_bytes = rans_bytes(tables, n, False, words_total)
+    enc_bound = enc_bytes / PEAK_BYTES_PER_S * 1e3
+    dec_bound = dec_bytes / PEAK_BYTES_PER_S * 1e3
+    for name, per, tot, plain, bound, nbytes in (
+            ("rans_encode", enc_stage_ms, enc_ms, enc_plain, enc_bound, enc_bytes),
+            ("rans_decode", dec_stage_ms, dec_ms, dec_plain, dec_bound, dec_bytes)):
+        log(f"  {name} at the finest level ({rans.lane_count(g.ccap)} lanes x "
+            f"{steps} steps a stage): stages "
+            f"{', '.join(f'{t:.4f}' for t in per)} ms (stages 0-3, CUDA events), "
+            f"{tot:.4f} ms for the level ({tot / (4 * steps) * 1e6:.1f} ns a "
+            f"step); plain version {plain:.3f} ms; bound {bound:.5f} ms "
+            f"(bytes: {nbytes} B at 3.35 TB/s), {100 * bound / tot:.2f}% of it")
+    rows.append({"name": "rans_encode", "route": "cuda",
+                 "source": "gauspcc_tpu_torch/csrc/rans.cu",
+                 "replaces": "gauspcc_tpu/ops/rans.py:80",
+                 "launches": enc_launches, "max_abs_err": 0.0, "ms": enc_ms,
+                 "plain_ms": enc_plain, "bound_ms": enc_bound,
+                 "bound_by": "bytes", "library_ms": None})
+    rows.append({"name": "rans_decode", "route": "cuda",
+                 "source": "gauspcc_tpu_torch/csrc/rans.cu",
+                 "replaces": "gauspcc_tpu/ops/rans.py:142",
+                 "launches": dec_launches, "max_abs_err": 0.0, "ms": dec_ms,
+                 "plain_ms": dec_plain, "bound_ms": dec_bound,
+                 "bound_by": "bytes", "library_ms": None})
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", type=Path, default=None,
                         help="an earlier tile_blend.cu to time beside the kernel")
+    parser.add_argument("--decode", metavar="BIN", default=None,
+                        help="only decode BIN with the r5 codec weights (the "
+                        "codec phase runs this in a fresh process)")
+    parser.add_argument("--out", metavar="NPY", default=None,
+                        help="with --decode: where to save the decoded points")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if opts.decode is not None:
+        return decode_main(opts.decode, opts.out)
     dev = torch.device("cuda")
     # float32 matmuls in full precision (the default), stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -668,10 +1040,13 @@ def main() -> int:
             f"{torch.cuda.device_count()} device(s)")
 
     with Phase("build"):
-        built = native.load("tile_blend")
-        log(f"  tile_blend: nvcc {built.seconds:.3f} s -> {built.path.name}")
-        for line in ptxas_lines(built.log):
-            log(f"  ptxas {line}")
+        sources = ("tile_blend", "rans")
+        with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+            builds = list(pool.map(native.load, sources))
+        for name, built in zip(sources, builds):
+            log(f"  {name}: nvcc {built.seconds:.3f} s -> {built.path.name}")
+            for line in ptxas_lines(built.log):
+                log(f"  ptxas {line}")
 
     with Phase("kernel"):
         gen = torch.Generator().manual_seed(SEED)
@@ -1181,6 +1556,9 @@ def main() -> int:
         if not rel <= REF_LEAF_RTOL:
             raise RuntimeError("card and CPU training steps disagree")
 
+    with Phase("codec"):
+        codec_rows = codec_phase(dev)
+
     log(json.dumps({"kernels": [{
         "name": "tile_blend",
         "route": "cuda",
@@ -1205,7 +1583,7 @@ def main() -> int:
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
         "library_ms": None,
-    }]}))
+    }, *codec_rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

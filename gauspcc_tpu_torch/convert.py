@@ -1,4 +1,5 @@
-"""Carry a HAC state from the JAX package into the port.
+"""Carry a HAC state and GausPcgc codec weights from the JAX package into
+the port.
 
 The JAX package saves a pytree as flat "a/b/c" keys
 (gauspcc_tpu/utils/checkpoint.py:17-33, `save_pytree`), e.g.
@@ -6,6 +7,9 @@ The JAX package saves a pytree as flat "a/b/c" keys
 tree as nested dicts of numpy arrays, and returns the port's state. Dense
 weights are stored [in, out] there and [out, in] in `nn.Linear`, so they
 are transposed; the tables keep their (xyz, xy, xz, yz) layout.
+`codec_params_from_numpy` and `load_codec_npz` do the same for the codec's
+network (`codecs/gauspcgc/model.GausPcgcNet`), whose conv weights keep
+their [k^3, Cin, Cout] layout.
 """
 
 from __future__ import annotations
@@ -70,3 +74,53 @@ def state_from_numpy(tree: Mapping, cfg: hac.HACConfig,
         "x_bound_min": get("x_bound_min", (1, 3)).to(torch.float32),
         "x_bound_max": get("x_bound_max", (1, 3)).to(torch.float32),
     }
+
+
+def codec_params_from_numpy(tree: Mapping, cfg=None, device="cuda"):
+    """The port's GausPcgc network from the JAX package's weights.
+
+    `tree`: the flat "a/b/c" keys `save_pytree` writes (57 keys for the
+    default NetConfig, e.g. "head_s0/fc0/w"), or the same tree as nested
+    dicts of numpy arrays. Dense weights [in, out] are transposed into
+    `nn.Linear`; conv weights keep their [k^3, Cin, Cout] layout."""
+    from gauspcc_tpu_torch.codecs.gauspcgc import model as pcgc
+
+    cfg = cfg if cfg is not None else pcgc.NetConfig()
+    dev = resolve(device)
+    flat = flatten(tree)
+    net = pcgc.GausPcgcNet(cfg)
+    names = dict(net.named_parameters())
+    unused = set(flat) - {_codec_key(n) for n in names}
+    if unused:
+        raise KeyError(f"weights the network does not have: {sorted(unused)}")
+    with torch.no_grad():
+        for name, p in names.items():
+            key = _codec_key(name)
+            if key not in flat:
+                raise KeyError(f"weights are missing {key}")
+            arr = torch.tensor(np.asarray(flat[key], np.float32))
+            if name.endswith(".weight"):  # nn.Linear: [out, in]
+                arr = arr.T
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"shape mismatch for {key}: "
+                                 f"{tuple(arr.shape)} vs {tuple(p.shape)}")
+            p.copy_(arr)
+    return net.to(dev)
+
+
+def _codec_key(param_name: str) -> str:
+    """nn parameter name -> the JAX tree's flat key."""
+    key = param_name.replace(".", "/")
+    if key.endswith("/weight"):
+        key = key[: -len("weight")] + "w"
+    elif key.endswith("/bias"):
+        key = key[: -len("bias")] + "b"
+    return key
+
+
+def load_codec_npz(path, cfg=None, device="cuda"):
+    """The port's GausPcgc network from a `.npz` the JAX package saved
+    (e.g. model/gauspcgc_r5/best_model.npz)."""
+    with np.load(path) as data:
+        return codec_params_from_numpy({k: data[k] for k in data.files}, cfg,
+                                       device)

@@ -498,3 +498,43 @@ def test_backward_culls_quadrants_at_the_edge_of_reach(cuda_device):
     reach_right = touched[:, right].any(1)
     assert 0 < int(reach_right.sum()) < reach_right.numel()
     _check_kernel(args, tiles_x=tiles_x, height=32, width=32, max_k=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,n_valid", [(16384, 16384), (16384, 9001),
+                                         (16384, 0), (2048, 1500), (256, 77)])
+def test_rans_kernels_match_plain_versions(cuda_device, cap, n_valid):
+    """Both rANS kernels against their plain versions, bit for bit: the
+    encode's state, word counts and words, then the decode's state,
+    pointer, symbols and fused prev; every coded symbol decodes."""
+    from gauspcc_tpu_torch.ops import rans
+    gen = torch.Generator().manual_seed(cap + n_valid)
+    tables, syms = chip_smoke.random_rans_inputs(gen, cap, cuda_device)
+    enc, dec = rans.encode_launches, rans.decode_launches
+    chip_smoke.check_rans("test", tables, syms, n_valid)
+    assert rans.encode_launches == enc + 4
+    assert rans.decode_launches == dec + 4
+
+
+@pytest.mark.cuda
+def test_codec_roundtrip_on_the_card(cuda_device, tmp_path):
+    """A small cloud through compress and decompress on the card, with
+    seeded weights at NetConfig(16, 3): lossless, through both kernels."""
+    from gauspcc_tpu_torch.codecs.gauspcgc import codec, model
+    from gauspcc_tpu_torch.ops import rans
+    cfg = model.NetConfig(channels=16, kernel_size=3)
+    net = model.GausPcgcNet(cfg)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    rng = np.random.default_rng(0)
+    xyz = np.unique(rng.integers(-60, 200, (4000, 3)), axis=0)[:2500]
+    enc, dec = rans.encode_launches, rans.decode_launches
+    path = str(tmp_path / "pc.bin")
+    out = codec.compress_point_cloud(xyz, net.to(cuda_device), path, config=cfg)
+    got = codec.decompress_point_cloud(path, net, config=cfg)
+    assert rans.encode_launches > enc and rans.decode_launches > dec
+    assert out["num_points"] == got["num_points"] == xyz.shape[0]
+    np.testing.assert_array_equal(
+        np.unique(got["point_cloud"].astype(np.int64), axis=0), xyz)
