@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (`gauspcc_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline FILE]
+    python3 chip_smoke.py [--baseline FILE] [--baseline-rans FILE]
     python3 chip_smoke.py --decode BIN --out NPY
 
 Phases, each printed with its wall time; any failure ends the run with a
@@ -59,7 +59,10 @@ non-zero exit and no result line:
           level the conv GEMM's time and TFLOP/s, and both rANS kernels
           against their plain versions bit for bit, on its real tables and
           symbols and on seeded random tables (n_valid below the capacity
-          and 0), each stage timed beside its byte bound
+          and 0), each stage timed beside its byte bound and the chain
+          floor: the same per-step arithmetic with every operand in
+          registers (rans.encode_floor, rans.decode_floor at 3, 5 and 17
+          columns), 1,280 steps a lane
 
 With --baseline FILE, an earlier tile_blend.cu is built and run on the
 thin Gaussians at the cut (its values outside the tolerance are reported,
@@ -72,6 +75,15 @@ there in turns, and with only the longest list kept. Its C interface is
 PR 6's: tile_blend_forward(7 pointers, 5 ints, schedule scratch, out,
 stream) and tile_blend_backward(8 pointers, 5 ints, schedule scratch, the
 4 gradients, stream).
+
+With --baseline-rans FILE, an earlier rans.cu with the same C interface
+(rans_encode_stage, rans_decode_stage; for example
+tests/baseline/rans_direct.cu, the first kernels, which read each step's
+operands from device memory inside the chain) is built. In the codec
+phase it must give the kernels' words, word counts, states, pointers,
+symbols and prev, and the same packed stream, on the finest level's
+tables and on every random case; each of the finest level's stages is
+timed in turns (baseline, kernel, kernel, baseline) beside the kernels.
 
 Then one JSON line per the port's kernels (launches, error, times, bound)
 and, last, {"ok": true, "device": {...}}. Nothing is written into the tree
@@ -469,8 +481,11 @@ def ptxas_lines(build_log: str) -> list[str]:
             mangled = line.split("'")[1]
             name = next((k for k in ("backward_kernel", "blend_kernel",
                                      "order_kernel", "encode_stage_kernel",
-                                     "decode_stage_kernel") if k in mangled),
+                                     "decode_stage_kernel", "encode_floor_kernel",
+                                     "decode_floor_kernel") if k in mangled),
                         mangled)
+            if "IL" in mangled:  # a template's argument, e.g. ILi17E -> <17>
+                name += f"<{mangled.split('IL')[1].split('E')[0][1:]}>"
         elif "registers" in line or "spill" in line:
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -686,13 +701,15 @@ def bench_cloud() -> np.ndarray:
 
 
 def rans_stage_ms(tables, n_valid: int, words=None, syms=None,
-                  reps: int = 3) -> list[float]:
+                  reps: int = 3, coder=None) -> list[float]:
     """Device ms of each of one level's four rANS stage launches (indexed
     by stage), the encode kernel when `syms` is given, else the decode
     kernel on `words`: CUDA events around each launch, queued behind a
     delay kernel so that no event waits for the host, mean of `reps` runs
-    from a fresh carry."""
+    from a fresh carry. `coder` is an (encode_stage, decode_stage) pair
+    in place of the port's (`baseline_rans_coder`)."""
     encode = syms is not None
+    enc_fn, dec_fn = coder or (rans.encode_stage, rans.decode_stage)
     cap = tables[0].shape[0]
     total = [0.0] * 4
     for _ in range(reps):
@@ -709,10 +726,10 @@ def rans_stage_ms(tables, n_valid: int, words=None, syms=None,
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             if encode:
-                carry = rans.encode_stage(carry, tables[stage], syms[stage], n_valid)
+                carry = enc_fn(carry, tables[stage], syms[stage], n_valid)
             else:
-                carry, _, prev = rans.decode_stage(carry, tables[stage], words,
-                                                   n_valid, prev, stage)
+                carry, _, prev = dec_fn(carry, tables[stage], words, n_valid,
+                                        prev, stage)
             e1.record()
             marks.append((stage, e0, e1))
         torch.cuda.synchronize()
@@ -721,18 +738,21 @@ def rans_stage_ms(tables, n_valid: int, words=None, syms=None,
     return total
 
 
-def rans_encode_all(tables, syms, n_valid, plain: bool):
+def rans_encode_all(tables, syms, n_valid, plain: bool, coder=None):
     """The four encode stages (3..0) of one level from a fresh carry, by
-    the kernel or its plain version -> (state, n_words, words)."""
+    the kernel (or `coder`'s) or its plain version -> (state, n_words,
+    words)."""
     carry = rans.enc_init(tables[0].shape[0], device=tables[0].device)
-    step = rans.encode_stage_reference if plain else rans.encode_stage
+    step = (rans.encode_stage_reference if plain
+            else (coder or (rans.encode_stage,))[0])
     for stage in (3, 2, 1, 0):
         carry = step(carry, tables[stage], syms[stage], n_valid)
     return carry
 
 
-def rans_decode_all(tables, words, n_valid, plain: bool):
+def rans_decode_all(tables, words, n_valid, plain: bool, coder=None):
     """The four decode stages (0..3) -> (state, ptr, syms per stage, prev)."""
+    dec_fn = (coder or (None, rans.decode_stage))[1]
     carry = rans.dec_init(words)
     prev = torch.zeros(tables[0].shape[0], dtype=torch.int32, device=words.device)
     out = []
@@ -742,8 +762,8 @@ def rans_decode_all(tables, words, n_valid, plain: bool):
                                                    n_valid)
             prev = rans.advance_prev(prev, s, stage)
         else:
-            carry, s, prev = rans.decode_stage(carry, tables[stage], words,
-                                               n_valid, prev, stage)
+            carry, s, prev = dec_fn(carry, tables[stage], words, n_valid, prev,
+                                    stage)
         out.append(s)
     return carry[0], carry[1], out, prev
 
@@ -786,6 +806,113 @@ def check_rans(label: str, tables, syms, n_valid: int) -> dict:
         f"{len(stream)} B: encode and decode kernels equal to the plain "
         f"versions bit for bit, symbols decoded")
     return {"words": dwords, "n_words": n_words, "stream_bytes": len(stream)}
+
+
+def baseline_rans_coder(path: Path):
+    """(encode_stage, decode_stage) on an earlier rans.cu with the same C
+    interface, built: the signatures of rans.encode_stage and
+    rans.decode_stage, on CUDA tensors, the carries updated in place."""
+    built = native.load_source(path)
+    log(f"  baseline rans {path}: nvcc {built.seconds:.3f} s")
+    for line in ptxas_lines(built.log):
+        log(f"  baseline ptxas: {line}")
+    lib = built.lib
+    c_int, ptr = ctypes.c_int, ctypes.c_void_p
+    lib.rans_encode_stage.argtypes = [ptr, ptr, ptr, c_int, ptr, c_int, ptr,
+                                      c_int, c_int, c_int, ptr]
+    lib.rans_encode_stage.restype = c_int
+    lib.rans_decode_stage.argtypes = [ptr, ptr, ptr, c_int, ptr, c_int, c_int,
+                                      c_int, c_int, c_int, ptr, ptr, ptr, ptr]
+    lib.rans_decode_stage.restype = c_int
+
+    def encode(carry, table, syms, n_valid):
+        state, n_words, words = carry
+        lanes = state.shape[0]
+        rc = lib.rans_encode_stage(
+            state.data_ptr(), n_words.data_ptr(), words.data_ptr(),
+            words.shape[1], table.data_ptr(), table.shape[1], syms.data_ptr(),
+            table.shape[0] // lanes, lanes, n_valid,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline rans_encode_stage failed: CUDA error {rc}")
+        return carry
+
+    def decode(carry, table, words, n_valid, prev, stage):
+        state, ptr = carry
+        lanes = state.shape[0]
+        syms, prev_out = torch.empty_like(prev), torch.empty_like(prev)
+        rc = lib.rans_decode_stage(
+            state.data_ptr(), ptr.data_ptr(), words.data_ptr(), words.shape[1],
+            table.data_ptr(), table.shape[1], table.shape[0] // lanes, lanes,
+            n_valid, stage, prev.data_ptr(), prev_out.data_ptr(),
+            syms.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline rans_decode_stage failed: CUDA error {rc}")
+        return (state, ptr), syms, prev_out
+    return encode, decode
+
+
+def check_rans_baseline(label: str, tables, syms, n_valid: int, coder) -> None:
+    """The kernels against the baseline's (`coder`) on the same inputs, bit
+    for bit: the encode's state, word counts and words, the packed stream,
+    then the decode's state, pointer, every stage's symbols and prev."""
+    cap = tables[0].shape[0]
+    got = rans_encode_all(tables, syms, n_valid, plain=False)
+    base = rans_encode_all(tables, syms, n_valid, plain=False, coder=coder)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("state", "n_words", "words"), got, base):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"rans encode {label}: {name} differs from the "
+                               f"baseline's")
+    streams = [rans.pack_stream(*(t.cpu().numpy() for t in rans.enc_flush(c)))
+               for c in (got, base)]
+    if streams[0] != streams[1]:
+        raise RuntimeError(f"rans {label}: the packed stream differs from the "
+                           f"baseline's")
+    w_np, _ = rans.unpack_stream(streams[0], rans.word_capacity(cap))
+    words = torch.as_tensor(w_np, device=tables[0].device)
+    dg = rans_decode_all(tables, words, n_valid, plain=False)
+    db = rans_decode_all(tables, words, n_valid, plain=False, coder=coder)
+    torch.cuda.synchronize()
+    pairs = [("state", dg[0], db[0]), ("ptr", dg[1], db[1]), ("prev", dg[3], db[3])]
+    pairs += [(f"stage {k} symbols", dg[2][k], db[2][k]) for k in range(4)]
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            raise RuntimeError(f"rans decode {label}: {name} differ from the "
+                               f"baseline's")
+    log(f"  rans {label}, n_valid {n_valid}: words, word counts, states, "
+        f"pointers, symbols, prev and the {len(streams[0])}-byte stream equal "
+        f"to the baseline's")
+
+
+def rans_chain_floor(tables, syms, steps: int) -> dict:
+    """Device ms of the chain floor kernels, `steps` steps a lane with every
+    operand in registers, on the level's first step: encode on stage 3's
+    (lo, freq) of the coded symbols, dividing as the kernel does and, in
+    turns with it, by u32 `/` and `%`; decode on the rows of stages 0, 2
+    and 3 (3, 5 and 17 columns). -> {"encode": ms, "encode_divide": ms,
+    3: ms, 5: ms, 17: ms}."""
+    dev = tables[0].device
+    cap = tables[0].shape[0]
+    lanes = rans.lane_count(cap)
+    t3 = tables[3][:lanes].to(torch.int64)
+    s3 = syms[3][:lanes].to(torch.int64).clamp(0, t3.shape[1] - 2)[:, None]
+    lo = t3.gather(1, s3)[:, 0]
+    freq = ((t3.gather(1, s3 + 1)[:, 0] - lo) & 0xFFFF).clamp(1, 0xFFFF - 63)
+    lo_freq = torch.stack([lo, freq], 1).to(torch.int32)
+    carry = rans.enc_init(cap, device=dev)
+    out = {}
+    for divide in (True, False, False, True):  # in turns
+        key = "encode_divide" if divide else "encode"
+        ms = device_ms(lambda: rans.encode_floor(carry, lo_freq, steps, divide), 10)[0]
+        out[key] = out.get(key, 0.0) + ms / 2
+    for stage in (0, 2, 3):
+        rows = tables[stage][:lanes].contiguous()
+        dcarry = (torch.full((lanes,), 0x9E3779B9, dtype=torch.int64, device=dev),
+                  torch.zeros(lanes, dtype=torch.int32, device=dev))
+        out[rows.shape[1]] = device_ms(
+            lambda r=rows, c=dcarry: rans.decode_floor(c, r, 0x5A5A, steps), 10)[0]
+    return out
 
 
 def random_rans_inputs(gen: torch.Generator, cap: int, dev):
@@ -842,9 +969,10 @@ def decode_main(bin_path: str, out_path: str) -> int:
     return 0
 
 
-def codec_phase(dev) -> list[dict]:
+def codec_phase(dev, baseline_rans: Path | None = None) -> list[dict]:
     """The GausPcgc codec on the bench cloud with the r5 weights; returns
-    the kernel rows of rans_encode and rans_decode."""
+    the kernel rows of rans_encode and rans_decode. With `baseline_rans`,
+    an earlier rans.cu is checked and timed beside the kernels."""
     cfg = pcgc_model.NetConfig()
     net = convert.load_codec_npz(CODEC_WEIGHTS, cfg, device=dev)
     pts = bench_cloud()
@@ -962,10 +1090,16 @@ def codec_phase(dev) -> list[dict]:
 
     n = g.n_child
     real = check_rans("finest level's tables", tables, syms, n)
+    coder = None
+    if baseline_rans is not None:
+        coder = baseline_rans_coder(baseline_rans)
+        check_rans_baseline("finest level's tables", tables, syms, n, coder)
     gen = torch.Generator().manual_seed(SEED)
     for cap, n_valid in RANS_RANDOM_CASES:
         t_r, s_r = random_rans_inputs(gen, cap, dev)
         check_rans("random tables", t_r, s_r, n_valid)
+        if coder is not None:
+            check_rans_baseline("random tables", t_r, s_r, n_valid, coder)
 
     steps = g.ccap // rans.lane_count(g.ccap)
     enc_stage_ms = rans_stage_ms(tables, n, syms=syms)
@@ -978,6 +1112,24 @@ def codec_phase(dev) -> list[dict]:
     dec_bytes = rans_bytes(tables, n, False, words_total)
     enc_bound = enc_bytes / PEAK_BYTES_PER_S * 1e3
     dec_bound = dec_bytes / PEAK_BYTES_PER_S * 1e3
+    floor = rans_chain_floor(tables, syms, steps)
+    log(f"  chain floor ({steps} steps a lane, operands in registers, device "
+        f"time behind a delay, mean of 10): encode {floor['encode']:.4f} ms "
+        f"({floor['encode'] / steps * 1e6:.1f} ns a step; dividing by u32 / and % "
+        f"instead, in turns: {floor['encode_divide']:.4f} ms, "
+        f"{floor['encode_divide'] / steps * 1e6:.1f} ns a step); decode at 3 / 5 / 17 "
+        f"columns {floor[3]:.4f} / {floor[5]:.4f} / {floor[17]:.4f} ms "
+        f"({floor[3] / steps * 1e6:.1f} / {floor[5] / steps * 1e6:.1f} / "
+        f"{floor[17] / steps * 1e6:.1f} ns a step)")
+    floors = {"rans_encode": [floor["encode"]] * 4,
+              "rans_decode": [floor[t.shape[1]] for t in tables]}
+    lanes = rans.lane_count(g.ccap)
+    log("  ring of a launch at the finest level (ops/rans.py ring_plan, as "
+        "csrc/rans.cu plans it): " + "; ".join(
+            f"{'encode' if enc else 'decode'} at {lp} columns {c} steps x {n} "
+            f"slots, {b} B of dynamic shared memory"
+            for enc in (True, False) for lp in (3, 5, 17)
+            for c, n, b in [rans.ring_plan(lanes, lp, enc)]))
     for name, per, tot, plain, bound, nbytes in (
             ("rans_encode", enc_stage_ms, enc_ms, enc_plain, enc_bound, enc_bytes),
             ("rans_decode", dec_stage_ms, dec_ms, dec_plain, dec_bound, dec_bytes)):
@@ -987,6 +1139,25 @@ def codec_phase(dev) -> list[dict]:
             f"{tot:.4f} ms for the level ({tot / (4 * steps) * 1e6:.1f} ns a "
             f"step); plain version {plain:.3f} ms; bound {bound:.5f} ms "
             f"(bytes: {nbytes} B at 3.35 TB/s), {100 * bound / tot:.2f}% of it")
+        log(f"    per stage: {', '.join(f'{t / steps * 1e6:.1f}' for t in per)} "
+            f"ns a step, {', '.join(f'{t / f:.2f}' for t, f in zip(per, floors[name]))}"
+            f" x the chain floor")
+    if coder is not None:
+        turns = []
+        for who in ("baseline", "kernel", "kernel", "baseline"):
+            c = coder if who == "baseline" else None
+            turns.append((rans_stage_ms(tables, n, syms=syms, coder=c),
+                          rans_stage_ms(tables, n, words=real["words"], coder=c)))
+        for k, name in enumerate(("rans_encode", "rans_decode")):
+            base = [(a + b) / 2 for a, b in zip(turns[0][k], turns[3][k])]
+            kern = [(a + b) / 2 for a, b in zip(turns[1][k], turns[2][k])]
+            log(f"  {name} in turns (baseline, kernel, kernel, baseline), stages "
+                f"0-3: baseline {', '.join(f'{t:.4f}' for t in base)} ms "
+                f"({sum(base):.4f}; {sum(base) / (4 * steps) * 1e6:.1f} ns a "
+                f"step), kernel {', '.join(f'{t:.4f}' for t in kern)} ms "
+                f"({sum(kern):.4f}; {sum(kern) / (4 * steps) * 1e6:.1f} ns a "
+                f"step): {sum(base) / sum(kern):.2f}x; every turn "
+                f"{[round(sum(t[k]), 4) for t in turns]}")
     rows.append({"name": "rans_encode", "route": "cuda",
                  "source": "gauspcc_tpu_torch/csrc/rans.cu",
                  "replaces": "gauspcc_tpu/ops/rans.py:80",
@@ -1006,6 +1177,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", type=Path, default=None,
                         help="an earlier tile_blend.cu to time beside the kernel")
+    parser.add_argument("--baseline-rans", type=Path, default=None,
+                        help="an earlier rans.cu (same C interface) to check "
+                        "and time beside the rANS kernels")
     parser.add_argument("--decode", metavar="BIN", default=None,
                         help="only decode BIN with the r5 codec weights (the "
                         "codec phase runs this in a fresh process)")
@@ -1557,7 +1731,7 @@ def main() -> int:
             raise RuntimeError("card and CPU training steps disagree")
 
     with Phase("codec"):
-        codec_rows = codec_phase(dev)
+        codec_rows = codec_phase(dev, opts.baseline_rans)
 
     log(json.dumps({"kernels": [{
         "name": "tile_blend",

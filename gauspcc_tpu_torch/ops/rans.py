@@ -19,7 +19,11 @@ uint16 values in int32. Tables are int32 [cap, Lp] (core/cdf.py).
 `encode_stage` and `decode_stage` launch the kernels for CUDA tensors and
 raise if they cannot; they take the plain versions (`*_reference`, a loop
 over steps vectorised over lanes) only for CPU tensors. The plain versions
-are also what the kernels are held against on the card.
+are also what the kernels are held against on the card. The kernels stage
+each step's rows and symbols in a shared-memory ring ahead of the lanes'
+chains (`csrc/rans.cu`); `search_by_compares`, `divide_by_reciprocal`,
+`ring_plan` and `ring_walk` replay their search, their division and their
+ring's indexing on the host for the CPU tests, and run on no coding path.
 """
 
 from __future__ import annotations
@@ -144,6 +148,101 @@ def decode_stage_reference(carry, table: torch.Tensor, words: torch.Tensor,
     return (state, ptr), out
 
 
+def search_by_compares(rows: torch.Tensor, slot: torch.Tensor):
+    """The decode kernel's search (`csrc/rans.cu` `decode_symbol`) replayed:
+    rows int [N, Lp], slot [N] -> (s, lo, hi) from compares, selects, a
+    max, a min and a count, no indexed read; at Lp 17 three compares first
+    pick the group of 4 columns that holds the slot. On rows nondecreasing
+    over columns 0..Lp-2 it gives the counting search's s, lo = row[s] and
+    (hi - lo) & 0xFFFF = the symbol's freq; hi is the wrapped last column
+    plus 2^16 where no entry lies above the slot."""
+    rows = rows.to(torch.int64)
+    slot = slot.to(torch.int64)[:, None]
+    lp = rows.shape[1]
+    e = torch.cat([rows[:, :lp - 1], rows[:, lp - 1:] + (1 << 16)], 1)
+    s = torch.zeros_like(slot[:, 0])
+    if lp == 17:  # the group of 4 columns that holds the slot, by selects
+        p1, p2, p3 = (rows[:, j:j + 1] <= slot for j in (4, 8, 12))
+        a = torch.where(p1, e[:, 4:9], e[:, 0:5])
+        b = torch.where(p3, e[:, 12:17], e[:, 8:13])
+        e = torch.where(p2, b, a)
+        s = 4 * (p1.long() + p2.long() + p3.long())[:, 0]
+    c = e[:, 1:-1]
+    le = c <= slot
+    s = s + le.sum(1)
+    lo = torch.maximum(e[:, 0], torch.where(le, c, 0).amax(1))
+    hi = torch.minimum(e[:, -1], torch.where(le, U32, c).amin(1))
+    return s, lo, hi
+
+
+def divide_by_reciprocal(x: np.ndarray, freq: np.ndarray):
+    """The encode kernel's division (`csrc/rans.cu` `encode_symbol`)
+    replayed on uint64 arrays: with m = (2^32 - 1) // freq taken ahead of
+    the chain, q = (x * m) >> 32 is x // freq or one less for any x below
+    2^32 and freq >= 1, so one correction gives -> (x // freq, x % freq)."""
+    x = x.astype(np.uint64)
+    freq = freq.astype(np.uint64)
+    m = np.uint64(U32) // freq
+    q = (x * m) >> np.uint64(32)
+    r = x - q * freq
+    over = r >= freq
+    return q + over, np.where(over, r - freq, r)
+
+
+# The kernels' ring, mirrored from csrc/rans.cu for `ring_plan`.
+ENCODE_CHUNK = 32  # kEncodeChunk: steps an encode slot holds, at most
+DECODE_CHUNK = 32  # kDecodeChunk
+RING_MAX_SLOTS = 8  # kMaxSlots
+SMEM_LIMIT = 232448  # kSmemLimit: a block's dynamic shared memory on sm_90
+RING_FIXED_BYTES = 2 * RING_MAX_SLOTS * 8  # the slots' mbarriers
+WORD_RING_BYTES = 128 * 129 * 4  # decode: a ring of 128 words a lane, stride 129
+
+
+def ring_plan(lanes: int, lp: int, encode: bool):
+    """(chunk, slots, shared bytes) of one kernel launch, as csrc/rans.cu's
+    `plan`: a step holds L rows of Lp entries and L symbols (encode) or L
+    prev values (decode); slots halve until 3 (encode) or 2 (decode) fit."""
+    step_bytes = 4 * lanes * (lp + 1)
+    fixed = RING_FIXED_BYTES + (0 if encode else WORD_RING_BYTES)
+    room = SMEM_LIMIT - fixed
+    chunk = ENCODE_CHUNK if encode else DECODE_CHUNK
+    min_slots = 3 if encode else 2
+    while chunk > 1 and room // (chunk * step_bytes) < min_slots:
+        chunk //= 2
+    slots = min(RING_MAX_SLOTS, room // (chunk * step_bytes))
+    if slots < 2:
+        raise ValueError(f"{lanes} lanes of {lp} columns do not fit a ring")
+    return chunk, slots, fixed + slots * chunk * step_bytes
+
+
+def ring_walk(cap: int, lanes: int, n_valid: int, lp: int, encode: bool):
+    """The kernels' ring replayed: -> (chunks, positions). chunks lists, in
+    the order the producer fills them and the consumers take them, (slot,
+    parity the consumers wait for, parity the producer waits for before
+    refilling or None, first step, steps, byte offset of its rows in the
+    table, bytes of rows); positions lists each lane's positions in the
+    order its thread codes them: steps backwards on encode, forwards on
+    decode, skipping positions >= n_valid."""
+    chunk, slots, _ = ring_plan(lanes, lp, encode)
+    vsteps = -(-n_valid // lanes)
+    n_chunks = -(-vsteps // chunk)
+    order = range(n_chunks - 1, -1, -1) if encode else range(n_chunks)
+    chunks, positions = [], [[] for _ in range(lanes)]
+    for i, k in enumerate(order):
+        t0 = k * chunk
+        tn = min(chunk, vsteps - t0)
+        chunks.append((i % slots, (i // slots) & 1,
+                       (i // slots - 1) & 1 if i >= slots else None,
+                       t0, tn, 4 * t0 * lanes * lp, 4 * tn * lanes * lp))
+        steps = range(tn - 1, -1, -1) if encode else range(tn)
+        for lane in range(lanes):
+            for j in steps:
+                pos = (t0 + j) * lanes + lane
+                if pos < n_valid:
+                    positions[lane].append(pos)
+    return chunks, positions
+
+
 def advance_prev(prev: torch.Tensor, s: torch.Tensor, stage: int) -> torch.Tensor:
     """The combined earlier bits a stage's table is conditioned on, after
     stage `stage` decoded s (codec.py:173-183): s, then 2p+s, 4p+s, and
@@ -164,16 +263,29 @@ def _library():
                                           c_int, c_int, c_int, c_int, ptr,
                                           ptr, ptr, ptr]
         lib.rans_decode_stage.restype = c_int
+        lib.rans_encode_floor.argtypes = [ptr, ptr, ptr, c_int, ptr, c_int,
+                                          c_int, c_int, ptr]
+        lib.rans_encode_floor.restype = c_int
+        lib.rans_decode_floor.argtypes = [ptr, ptr, ptr, ptr, c_int, c_int,
+                                          c_int, c_int, ptr]
+        lib.rans_decode_floor.restype = c_int
     return lib
 
 
-def _on_card(tensors, names) -> torch.device:
+def _on_card(tensors, names, lanes: int) -> torch.device:
+    """The device of the kernel's tensors; raises on what the kernel does
+    not take: mixed devices, strides, a lane count not a multiple of 4,
+    and a table, syms or prev not on 16 bytes (its copies' granule)."""
     dev = tensors[0].device
     for t, name in zip(tensors, names):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the table on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+        if name in ("table", "syms", "prev") and t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on 16 bytes")
+    if lanes % 4 or not 4 <= lanes <= 128:
+        raise ValueError(f"the kernels take 4..128 lanes in steps of 4, not {lanes}")
     return dev
 
 
@@ -198,7 +310,7 @@ def encode_stage(carry, table: torch.Tensor, syms: torch.Tensor, n_valid: int):
         raise ValueError("encode carry: expected int64 state [L], int32 "
                          "n_words [L] and int32 words [L, W], L dividing cap")
     dev = _on_card([table, syms, state, n_words, words],
-                   ["table", "syms", "state", "n_words", "words"])
+                   ["table", "syms", "state", "n_words", "words"], lanes)
     lib = _library()
     with torch.cuda.device(dev):
         rc = lib.rans_encode_stage(
@@ -254,8 +366,11 @@ def decode_stage(carry, table: torch.Tensor, words: torch.Tensor, n_valid: int,
             or table.shape[0] % lanes):
         raise ValueError("decode carry: expected int64 state [L], int32 ptr "
                          "[L] and int32 words [L, W], L dividing cap")
+    if table.shape[1] not in (3, 5, 17):
+        raise ValueError(f"the decode kernel takes tables of 3, 5 or 17 "
+                         f"columns (the format's stages), not {table.shape[1]}")
     dev = _on_card([table, prev, state, ptr, words],
-                   ["table", "prev", "state", "ptr", "words"])
+                   ["table", "prev", "state", "ptr", "words"], lanes)
     syms = torch.empty_like(prev)
     prev_out = torch.empty_like(prev)
     lib = _library()
@@ -269,6 +384,40 @@ def decode_stage(carry, table: torch.Tensor, words: torch.Tensor, n_valid: int,
         raise RuntimeError(f"rans_decode_stage launch failed: CUDA error {rc}")
     decode_launches += 1
     return (state, ptr), syms, prev_out
+
+
+def encode_floor(carry, lo_freq: torch.Tensor, steps: int, divide: bool = False):
+    """Diagnostic, the encode chain's floor: `steps` steps of each lane with
+    its operands in registers, (lo, freq + t % 64) from lo_freq int32 [L,
+    2] on the card (freq >= 1, freq + 63 <= 65535), dividing as the kernel
+    does (by the reciprocal) or, with `divide`, by u32 `/` and `%`. The
+    carry is updated in place. No coding path calls it."""
+    state, n_words, words = carry
+    lib = _library()
+    rc = lib.rans_encode_floor(
+        state.data_ptr(), n_words.data_ptr(), words.data_ptr(), words.shape[1],
+        lo_freq.contiguous().data_ptr(), steps, state.shape[0], int(divide),
+        torch.cuda.current_stream(state.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rans_encode_floor launch failed: CUDA error {rc}")
+    return carry
+
+
+def decode_floor(carry, rows: torch.Tensor, word: int, steps: int):
+    """Diagnostic, the decode chain's floor: `steps` steps of each lane on
+    its row of rows int32 [L, Lp] (Lp 3, 5 or 17) held in registers,
+    refilling with `word`. -> (carry updated in place, each lane's symbols
+    summed). No coding path calls it."""
+    state, ptr = carry
+    total = torch.empty_like(ptr)
+    lib = _library()
+    rc = lib.rans_decode_floor(
+        state.data_ptr(), ptr.data_ptr(), total.data_ptr(),
+        rows.contiguous().data_ptr(), rows.shape[1], word, steps, state.shape[0],
+        torch.cuda.current_stream(state.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rans_decode_floor launch failed: CUDA error {rc}")
+    return carry, total
 
 
 # ---------------------------------------------------------------------------

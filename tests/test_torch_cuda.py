@@ -516,6 +516,92 @@ def test_rans_kernels_match_plain_versions(cuda_device, cap, n_valid):
     assert rans.decode_launches == dec + 4
 
 
+def _table(freqs):
+    """int32 CDF rows [cap, n + 1] (uint16 values, the last column wrapped to
+    0) from integer frequencies [cap, n] summing to 2^16 (0 allowed)."""
+    cdf = np.concatenate([np.zeros((freqs.shape[0], 1), np.int64),
+                          np.cumsum(freqs, 1)], 1)
+    return (cdf & 0xFFFF).astype(np.int32)
+
+
+def _edge_inputs(kind, cap, seed, device):
+    """Tables and symbols per stage: `refill`, the coded symbol has
+    frequency 1 (a word a step); `norefill`, it has 2^16 - (n - 1) (no word
+    in the whole stage); `zerofreq`, random frequencies of which about 40%
+    are 0 (equal neighbouring entries), never the coded symbol's."""
+    rng = np.random.default_rng(seed)
+    tables, syms = [], []
+    for n in (2, 2, 4, 16):
+        s = rng.integers(0, n, cap)
+        at = (np.arange(cap), s)
+        if kind == "refill":
+            f = np.full((cap, n), 65535 // (n - 1), np.int64)
+            f[at] = 1
+            f[np.arange(cap), (s + 1) % n] += 65536 - f.sum(1)
+        elif kind == "norefill":
+            f = np.ones((cap, n), np.int64)
+            f[at] = 65536 - (n - 1)
+        else:
+            w = rng.random((cap, n)) * (rng.random((cap, n)) >= 0.4)
+            w[at] = np.maximum(w[at], 0.05)
+            f = np.floor(w / w.sum(1, keepdims=True) * 65000).astype(np.int64)
+            # the coded symbol below 2^16, the last above 0: no entry but
+            # the last reaches 2^16
+            for j in ((s + 1) % n, n - 1):
+                f[np.arange(cap), j] = np.maximum(f[np.arange(cap), j], 1)
+            f[at] += 65536 - f.sum(1)
+        tables.append(torch.from_numpy(_table(f)).to(device))
+        syms.append(torch.from_numpy(s.astype(np.int32)).to(device))
+    return tables, syms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,n_valid,kind", [
+    (256, 256, "random"),  # 8 lanes x 32 steps
+    (1024, 1000, "random"),  # 8 lanes x 128 steps, the last step in part
+    (2048, 1999, "random"),  # 16 lanes
+    (16768, 16768, "random"),  # 128 lanes x 131 steps: a ragged last slot
+    (16768, 12837, "random"),  # n_valid mid-step, 101 steps walked
+    (16384, 16384, "refill"),
+    (16384, 16384, "norefill"),
+    (16384, 15000, "zerofreq"),
+    (2048, 2048, "zerofreq"),
+])
+def test_rans_kernels_on_edge_cases(cuda_device, cap, n_valid, kind):
+    """Both rANS kernels against their plain versions, bit for bit, at 8,
+    16 and 128 lanes, steps not a multiple of the ring's slot, and tables
+    that refill at every step, at none, or hold zero-frequency symbols."""
+    from gauspcc_tpu_torch.ops import rans
+    if kind == "random":
+        gen = torch.Generator().manual_seed(cap + n_valid)
+        tables, syms = chip_smoke.random_rans_inputs(gen, cap, cuda_device)
+    else:
+        tables, syms = _edge_inputs(kind, cap, cap + n_valid, cuda_device)
+    enc, dec = rans.encode_launches, rans.decode_launches
+    out = chip_smoke.check_rans(kind, tables, syms, n_valid)
+    assert rans.encode_launches == enc + 4
+    assert rans.decode_launches == dec + 4
+    steps = cap // rans.lane_count(cap)
+    if kind == "refill":
+        assert (out["n_words"] == 4 * steps + 2).all()
+    if kind == "norefill":
+        assert (out["n_words"] == 2).all()
+
+
+@pytest.mark.cuda
+def test_rans_stream_equals_the_first_kernels(cuda_device):
+    """The kernels write the bytes that the first rANS kernels
+    (tests/baseline/rans_direct.cu, the same C interface) write, and decode
+    the same symbols, states and pointers."""
+    from pathlib import Path
+    coder = chip_smoke.baseline_rans_coder(
+        Path(__file__).resolve().parent / "baseline" / "rans_direct.cu")
+    gen = torch.Generator().manual_seed(9)
+    for cap, n_valid in ((16768, 16001), (1024, 77)):
+        tables, syms = chip_smoke.random_rans_inputs(gen, cap, cuda_device)
+        chip_smoke.check_rans_baseline("test", tables, syms, n_valid, coder)
+
+
 @pytest.mark.cuda
 def test_codec_roundtrip_on_the_card(cuda_device, tmp_path):
     """A small cloud through compress and decompress on the card, with

@@ -52,8 +52,10 @@ def test_expon_lr_matches_jax(kw):
 
 
 def _carry_moments(tree, leaves):
-    """A JAX moment tree in the port's leaf layout."""
-    return {name: torch.from_numpy(np.ascontiguousarray(jax_leaf(tree, name)))
+    """A JAX moment tree in the port's leaf layout, copied: the port updates
+    its moments in place, and JAX's buffers must not change under a JAX
+    computation that its asynchronous dispatch may still be running."""
+    return {name: torch.from_numpy(np.array(jax_leaf(tree, name)))
             for name in leaves}
 
 
@@ -73,10 +75,12 @@ def test_group_adam_matches_optax():
     rng = np.random.default_rng(0)
     update = jax.jit(jopt.update)
     for _ in range(2):
+        # jnp.array copies: jnp.asarray would share the numpy buffer when it
+        # happens to be 64-byte aligned, which changes from run to run
         grads = jax.tree_util.tree_map(
-            lambda p: jnp.asarray(rng.normal(size=p.shape).astype(np.float32)
-                                  * 1e-3), params)
-        updates, jstate = update(grads, jstate, params)
+            lambda p: jnp.array(rng.normal(size=p.shape).astype(np.float32)
+                                * 1e-3), params)
+        updates, jstate = jax.block_until_ready(update(grads, jstate, params))
         params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
         tst = topt.update(_carry_moments(grads, leaves), tst, leaves)
         for name, t in leaves.items():
