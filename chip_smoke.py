@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py [--baseline FILE] [--baseline-rans FILE]
     python3 chip_smoke.py --decode BIN --out NPY
+    python3 chip_smoke.py --decode-scene DIR
 
 Phases, each printed with its wall time; any failure ends the run with a
 non-zero exit and no result line:
 
   device  the card's name and power limit (nvidia-smi); no CUDA -> exit 1
   build   nvcc builds every kernel of the port from gauspcc_tpu_torch/csrc,
-          one nvcc per source, all started together; ptxas registers,
-          shared memory and spills per kernel
+          one nvcc per source, all started together, beside g++ building the
+          host arithmetic coder (csrc/ac_coder.cpp); ptxas registers, shared
+          memory and spills per kernel
   kernel  the tile-blend kernel against its plain PyTorch version on random
           tiles at K = 1024 (empty tiles, short ones, tiles over K); the
           backward kernel against autograd of the plain version, for a
@@ -43,6 +45,24 @@ non-zero exit and no result line:
           their plain versions, timed beside their bounds, the backward's
           global atomics and its time with only the longest list kept; and
           the forward re-timed on trained lists at K = 1024
+  scene codec  HAC's scene bitstream on the trained state, with the
+          GausPcgc weights the r5 soak coded its anchors with
+          (model/gauspcgc/best_model.npz): estimate_final_bits per
+          component; conduct_encoding twice (the second must write the same
+          sizes), timed and split into the anchors' codec, the context (CUDA
+          events) and the host coder, with its rANS encode launches and the
+          networks' bits checked against their parameter count; the state,
+          the held-out views and what the decoder must give back handed to
+          a fresh process (this script with --decode-scene), which decodes,
+          checks anchors, masks, hash signs, feat, scaling and offsets
+          exactly, evaluates the decoded state (K = 1024), counts its rANS
+          decode and tile_blend launches and checks one decoded frame's blend
+          against the plain version; both rANS kernels against their plain
+          versions on the finest level of the anchors' cloud; the float
+          state evaluated here (K = 1024), its quantised attributes against
+          the decoded ones, and its PSNR with its rows in a seeded random
+          order (the renderer's order sensitivity, printed); codec_delta_db
+          (the float PSNR minus the decoded one) within +-0.01 dB
   reference  the whole slice at small widths on a 64x64 scene, on the card
           and through the port's CPU path, compared: ground truth, eval
           renders, and 3 training steps at phase 0
@@ -87,12 +107,15 @@ timed in turns (baseline, kernel, kernel, baseline) beside the kernels.
 
 Then one JSON line per the port's kernels (launches, error, times, bound)
 and, last, {"ok": true, "device": {...}}. Nothing is written into the tree
-except the kernel build under gauspcc_tpu_torch/build/ (gitignored); the
-codec's stream and decoded points go to a temporary directory.
+except the builds under gauspcc_tpu_torch/build/ (gitignored); the codecs'
+streams, the handed-off state and the decoded points go to temporary
+directories.
 
 With --decode BIN --out NPY it only decodes BIN with the r5 weights, twice
 (the two must agree), saves the first decode's points to NPY and prints one
 JSON line with the decode times, the per-level profile and the launches.
+With --decode-scene DIR it only decodes and evaluates the scene the scene
+codec phase handed off in DIR and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -100,6 +123,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -117,13 +141,15 @@ from gauspcc_tpu_torch.cli import soak
 from gauspcc_tpu_torch.codecs.gauspcgc import codec as pcgc_codec
 from gauspcc_tpu_torch.codecs.gauspcgc import model as pcgc_model
 from gauspcc_tpu_torch.core import cdf
+from gauspcc_tpu_torch.core.quant import ste_multistep
+from gauspcc_tpu_torch.models.hac import codec as hac_codec
 from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.models.hac import pipeline
 from gauspcc_tpu_torch.models.hac import render as hac_render
 from gauspcc_tpu_torch.models.hac import train as hac_train
 from gauspcc_tpu_torch.ops import rans, sibconv, sparse
 from gauspcc_tpu_torch.render import raster, tile_blend
-from gauspcc_tpu_torch.utils import image as img_lib
+from gauspcc_tpu_torch.utils import checkpoint, image as img_lib
 
 SEED = 0
 # r5 soak settings (gauspcc_tpu/cli/soak.py:135-147) and eval caps (runs/soak_hac_r5)
@@ -185,6 +211,12 @@ CODEC_BPP_JAX = 11.3381
 CODEC_BPP_TOL = 0.05
 # random tables for the rANS kernels: (capacity, valid positions)
 RANS_RANDOM_CASES = ((16384, 11_111), (16384, 0), (2048, 2047))
+# scene codec phase: the GausPcgc weights the r5 soak coded its anchors with
+# (gauspcc_tpu/cli/soak.py:154; tracked), and the JAX package's pin on the
+# PSNR the coding may cost (tests/test_hac_pipeline.py:62)
+ROOT = Path(__file__).resolve().parent
+SCENE_CODEC_WEIGHTS = ROOT / "model" / "gauspcgc" / "best_model.npz"
+SCENE_DELTA_DB = 0.01
 
 
 def log(msg: str) -> None:
@@ -969,6 +1001,25 @@ def decode_main(bin_path: str, out_path: str) -> int:
     return 0
 
 
+def finest_level(pts: np.ndarray, net, cfg, dev):
+    """The geometry, the four stage tables and the symbols of a cloud's
+    finest coded level, as the codec's encode builds them."""
+    levels = sparse.build_occupancy_pyramid(
+        sparse.dedupe_lex(pts - pts.min(axis=0)), min_points=pcgc_codec.MIN_BASE_POINTS,
+        sorted_unique=True)
+    depth = len(levels) - 2
+    pc, po = levels[depth]
+    c_coords, c_occ = levels[depth + 1]
+    with torch.no_grad(), pcgc_codec._exact_gemms():
+        g = pcgc_codec._SibLevelGeometry(
+            torch.as_tensor(pc, device=dev), torch.as_tensor(po.astype(np.int64), device=dev),
+            c_coords.shape[0])
+        cf = pcgc_codec._context_sib(net, cfg, g)
+        tables, syms = pcgc_codec._encode_tables(
+            net, g, cf, torch.as_tensor(c_occ.astype(np.int32), device=dev))
+    return g, tables, syms
+
+
 def codec_phase(dev, baseline_rans: Path | None = None) -> list[dict]:
     """The GausPcgc codec on the bench cloud with the r5 weights; returns
     the kernel rows of rans_encode and rans_decode. With `baseline_rans`,
@@ -1057,19 +1108,8 @@ def codec_phase(dev, baseline_rans: Path | None = None) -> list[dict]:
             log(f"    {ms:9.3f} ms  {count:5d}x  {name[:100]}")
 
     # the finest level: the conv GEMM and both rANS kernels on its tables
-    levels = sparse.build_occupancy_pyramid(
-        sparse.dedupe_lex(pts - pts.min(axis=0)), min_points=pcgc_codec.MIN_BASE_POINTS,
-        sorted_unique=True)
-    depth = len(levels) - 2
-    pc, po = levels[depth]
-    c_coords, c_occ = levels[depth + 1]
+    g, tables, syms = finest_level(pts, net, cfg, dev)
     with torch.no_grad(), pcgc_codec._exact_gemms():
-        g = pcgc_codec._SibLevelGeometry(
-            torch.as_tensor(pc, device=dev), torch.as_tensor(po.astype(np.int64), device=dev),
-            c_coords.shape[0])
-        cf = pcgc_codec._context_sib(net, cfg, g)
-        tables, syms = pcgc_codec._encode_tables(
-            net, g, cf, torch.as_tensor(c_occ.astype(np.int32), device=dev))
         groups = g.c_gmapT.shape[0]
         k_dim = 27 * 8 * cfg.channels
         gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1173,6 +1213,228 @@ def codec_phase(dev, baseline_rans: Path | None = None) -> list[dict]:
     return rows
 
 
+def scene_mlp_bits(state) -> int:
+    """32 bits a parameter of mlp_opacity, mlp_cov, mlp_color and mlp_grid,
+    counted here apart from the codec's own `mlp_size_bits`."""
+    nets = state["nets"]
+    return 32 * sum(p.numel() for m in (nets.mlp_opacity, nets.mlp_cov,
+                                        nets.mlp_color, nets.mlp_grid)
+                    for p in m.parameters())
+
+
+@torch.no_grad()
+def float_eval_diagnostics(state, cfg, scene, values, index, float_psnr) -> None:
+    """What could separate the float eval from the decoded one: the float
+    eval's STE-quantised attributes at the coded anchors against the
+    decoded ones, and the renderer's sensitivity to the anchors' row order
+    (the tile sort keeps the rows' order among equal keys, and training
+    keeps the rows in the coded order, `train.sort_anchors`): the float
+    state's PSNR with its valid rows in a seeded random order."""
+    ctx = hac.grid_mlp_split(state, cfg, hac.calc_interp_feat(
+        state, cfg, hac.get_anchor(state, cfg)))
+    feat_mean, scaling_mean, offset_mean = hac._live_means(state, cfg)
+    a = state["anchors"]
+    mask = hac.get_mask(state)[index]
+    float_q = {
+        "feat": ste_multistep(a["anchor_feat"], ctx["q_feat"], feat_mean)[index],
+        "scaling": ste_multistep(hac.get_scaling(state), ctx["q_scaling"],
+                                 scaling_mean)[index],
+        "offset": ste_multistep(a["offset"], ctx["q_offsets"][:, None, :],
+                                offset_mean)[index] * mask,
+    }
+    for name, want in float_q.items():
+        diff = (values[name] - want).abs()
+        log(f"  float eval's quantised {name} vs the decoded: max |diff| "
+            f"{float(diff.max()):.3e}, {int((diff > 0).sum())} of "
+            f"{diff.numel()} differ")
+    valid = torch.nonzero(state["valid"])[:, 0]
+    gen = torch.Generator().manual_seed(SEED)
+    rows = torch.cat([valid[torch.randperm(valid.numel(), generator=gen).to(valid.device)],
+                      torch.nonzero(~state["valid"])[:, 0]])
+    shuffled = dict(state, anchors={f: t[rows] for f, t in a.items()},
+                    valid=state["valid"][rows])
+    res = pipeline.evaluate(shuffled, cfg, scene.test_cameras, max_k=EVAL_K,
+                            white_background=True)
+    log(f"  the float state with its valid rows in a seeded random order: "
+        f"PSNR {res['psnr']:.4f} dB, {res['psnr'] - float_psnr:+.5f} dB from "
+        f"the coded order (the renderer's order sensitivity; not checked)")
+
+
+def scene_codec_phase(dev, scene, tstate, tcfg) -> None:
+    """HAC's scene bitstream on the trained state: estimate, encode, hand
+    the stream to a fresh process that decodes and evaluates it, compare."""
+    pcc_cfg = pcgc_model.NetConfig()
+    net = convert.load_codec_npz(SCENE_CODEC_WEIGHTS, pcc_cfg, device=dev)
+    log(f"  anchors' codec: {SCENE_CODEC_WEIGHTS.relative_to(ROOT)}, {pcc_cfg}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est, _ = hac_codec.estimate_final_bits(tstate, tcfg)
+    torch.cuda.synchronize()
+    log(f"  estimate_final_bits ({time.perf_counter() - t0:.3f} s): " + ", ".join(
+        f"{k} {v:.0f} bits ({v / hac_codec.BIT2MB:.4f} MB)" for k, v in est.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        bs_dir = str(Path(tmp) / "bitstreams")
+        t0 = time.perf_counter()
+        first, _ = hac_codec.conduct_encoding(tstate, tcfg, bs_dir, net, pcc_cfg)
+        log(f"  first encode (cuBLAS and kernel set-up included): "
+            f"{time.perf_counter() - t0:.3f} s")
+        values, prof = {}, {}
+        rans.encode_launches = 0
+        sizes, _ = hac_codec.conduct_encoding(tstate, tcfg, bs_dir, net, pcc_cfg,
+                                              values=values, profile=prof)
+        enc_launches = rans.encode_launches
+        if sizes != first:
+            raise RuntimeError(f"two encodes of one state differ: {first} "
+                               f"vs {sizes}")
+        n = values["feat"].shape[0]
+        log(f"  encode: {prof['total_s']:.4f} s wall, {n} anchors: anchors "
+            f"(GausPcgc) {prof['anchors_s']:.4f} s, context {prof['context_ms']:.3f} "
+            f"ms (CUDA events, {(n + hac_codec.BATCH - 1) // hac_codec.BATCH} "
+            f"batches), host coder {prof['coder_s']:.4f} s (host wall clock), "
+            f"the rest {prof['total_s'] - prof['anchors_s'] - prof['coder_s']:.4f} "
+            f"s; rans_encode launches {enc_launches}")
+        log("  encoded sizes: " + ", ".join(
+            f"{k} {v} bits ({v / hac_codec.BIT2MB:.4f} MB)" for k, v in sizes.items()))
+        if enc_launches == 0:
+            raise RuntimeError("the scene encode did not launch the rans "
+                               "encode kernel")
+        if sizes["mlps"] != scene_mlp_bits(tstate):
+            raise RuntimeError(f"mlps {sizes['mlps']} bits, the parameters "
+                               f"give {scene_mlp_bits(tstate)}")
+        # the handoff: the state, the held-out views, and what the decoder
+        # must give back
+        data = hac_codec._gather_sorted_attributes(tstate, tcfg)
+        checkpoint.save_pytree(str(Path(tmp) / "state.npz"), tstate)
+        with open(Path(tmp) / "cfg.json", "w") as f:
+            json.dump(tcfg._asdict(), f)
+        with open(Path(tmp) / "cams.pkl", "wb") as f:
+            pickle.dump(scene.test_cameras, f)
+        np.savez(Path(tmp) / "expect.npz",
+                 anchor=data["anchor_int"].astype(np.float32) * tcfg.voxel_size,
+                 mask=data["mask"].cpu().numpy(),
+                 hash=hac.encoding_params_flat(tstate).detach().cpu().numpy()
+                 .astype(np.int8),
+                 **{k: v.cpu().numpy() for k, v in values.items()})
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--decode-scene", tmp],
+                              capture_output=True, text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"the scene decoding process failed (exit "
+                               f"{proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        for line in proc.stdout.strip().splitlines()[:-1]:
+            log(f"  (decoder) {line}")
+        dec = json.loads(proc.stdout.strip().splitlines()[-1])
+        # the finest level of the anchors' cloud: both rANS kernels against
+        # their plain versions on its tables
+        g, tables, syms = finest_level(data["anchor_int"], net, pcc_cfg, dev)
+        check_rans("scene anchors' finest level", tables, syms, g.n_child)
+    dp = dec["profile"]
+    log(f"  decode in a fresh process ({child_s:.3f} s with start-up): "
+        f"first decode {dec['first_s']:.4f} s; second {dp['total_s']:.4f} s "
+        f"wall: anchors (GausPcgc) {dp['anchors_s']:.4f} s, context "
+        f"{dp['context_ms']:.3f} ms (CUDA events), host coder "
+        f"{dp['coder_s']:.4f} s; rans_decode launches {dec['rans_decode']}; "
+        f"anchors, masks, hash signs, feat, scaling and offsets equal to the "
+        f"encoder's")
+    log(f"  decoded eval: tile_blend launches {dec['tile_blend']}, K="
+        f"{dec['eval_k']} D={dec['eval_d']}, ms/view "
+        f"{', '.join(f'{m:.3f}' for m in dec['ms'])} (CUDA events, after a "
+        f"warm-up render)")
+    if dec["rans_decode"] == 0 or dec["tile_blend"] == 0:
+        raise RuntimeError("the scene decode did not launch the rans decode "
+                           "kernel, or its eval the tile_blend kernel")
+    float_res = pipeline.evaluate(tstate, tcfg, scene.test_cameras,
+                                  max_k=EVAL_K, white_background=True)
+    float_eval_diagnostics(tstate, tcfg, scene, values, data["index"],
+                           float_res["psnr"])
+    delta = float_res["psnr"] - dec["psnr"]
+    log(f"  PSNR decoded {dec['psnr']:.4f} dB (fresh process), float "
+        f"{float_res['psnr']:.4f} dB (the same state, this process; K="
+        f"{float_res['eval_k']} D={float_res['eval_d']}, ms/view "
+        f"{', '.join(f'{v['ms']:.3f}' for v in float_res['per_view'].values())}):"
+        f" codec_delta_db {delta:+.5f} (limit +-{SCENE_DELTA_DB}); size "
+        f"{sizes['total']} bits = {sizes['total'] / hac_codec.BIT2MB:.4f} MB")
+    if not abs(delta) <= SCENE_DELTA_DB:
+        raise RuntimeError(f"codec_delta_db {delta:+.5f} outside "
+                           f"+-{SCENE_DELTA_DB}")
+
+
+def decode_scene_main(tmp: str, device="cuda") -> int:
+    """--decode-scene: in this fresh process, load the handed-off state and
+    configuration, decode the scene twice (the second with counted
+    launches), check it exactly against what the encoder wrote, evaluate it
+    on the held-out views, check one decoded frame's blend against the
+    plain version and print one JSON line."""
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(Path(tmp) / "cfg.json") as f:
+        cfg = hac.HACConfig(**{k: tuple(v) if isinstance(v, list) else v
+                               for k, v in json.load(f).items()})
+    state = convert.state_from_numpy(
+        checkpoint.load_pytree(str(Path(tmp) / "state.npz")), cfg, device=dev)
+    net = convert.load_codec_npz(SCENE_CODEC_WEIGHTS, device=dev)
+    bs_dir = str(Path(tmp) / "bitstreams")
+    t0 = time.perf_counter()
+    hac_codec.conduct_decoding(state, cfg, bs_dir, net)
+    first_s = time.perf_counter() - t0
+    rans.decode_launches = 0
+    prof = {}
+    dec, _ = hac_codec.conduct_decoding(state, cfg, bs_dir, net, profile=prof)
+    rans_launches = rans.decode_launches
+    want = np.load(Path(tmp) / "expect.npz")
+    n = want["feat"].shape[0]
+    a = dec["anchors"]
+    got = {"anchor": a["anchor"][:n], "mask": a["mask"][:n],
+           "feat": a["anchor_feat"][:n], "scaling": a["scaling"][:n],
+           "offset": a["offset"][:n],
+           "hash": dec["nets"].tables.flat().to(torch.int8)}
+    for name, t in got.items():
+        if not np.array_equal(t.cpu().numpy(), want[name]):
+            raise RuntimeError(f"decoded {name} differs from the encoder's")
+    if int(dec["valid"].sum()) != n:
+        raise RuntimeError("the decoded state holds another anchor count")
+    with open(Path(tmp) / "cams.pkl", "rb") as f:
+        cams = pickle.load(f)
+    tile_blend.launches = 0
+    res = pipeline.evaluate(dec, cfg, cams, max_k=EVAL_K, white_background=True,
+                            decoded=True)
+    torch.cuda.synchronize()
+    blend_launches = tile_blend.launches
+    # one decoded frame blended by the kernel and the plain version
+    rcfg = pipeline._raster_cfg(cams[0], res["eval_k"], res["eval_d"])
+    ca = hac_render.CameraArrays.from_camera(cams[0], dev)
+    bg = torch.ones(3, device=dev)
+    with torch.no_grad():
+        vis = hac_render.prefilter_voxel(dec, cfg, ca, rcfg, True)
+        ng, _ = hac.generate_neural_gaussians(dec, cfg, ca.camera_center, vis,
+                                              decoded=True)
+        proj = raster.project(ng.xyz, ng.scaling, ng.rot, ca.viewmatrix, rcfg,
+                              ng.valid)
+        ts, pg, _ = raster._build_tile_lists(proj, rcfg)
+    frame = (ts, pg, proj.mean2d, proj.conic, ng.opacity.reshape(-1), ng.color, bg)
+    kw = dict(tiles_x=rcfg.tiles_x, height=cams[0].height, width=cams[0].width,
+              max_k=rcfg.max_gaussians_per_tile)
+    img = tile_blend.blend_tiles(*frame, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(img, res["renders"][0]):
+        raise RuntimeError("the decoded frame re-blended from its lists differs "
+                           "from evaluate's render")
+    rtol, atol = tile_blend.kernel_tolerance(bg, frame[5])
+    err = check_close("decoded frame, kernel vs plain", img,
+                      tile_blend.blend_tiles_reference(*frame, **kw), rtol, atol)
+    print(json.dumps({"first_s": first_s, "profile": prof,
+                      "rans_decode": rans_launches, "tile_blend": blend_launches,
+                      "psnr": res["psnr"], "eval_k": res["eval_k"],
+                      "eval_d": res["eval_d"],
+                      "ms": [v["ms"] for v in res["per_view"].values()],
+                      "frame_err": err}), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", type=Path, default=None,
@@ -1185,12 +1447,18 @@ def main() -> int:
                         "codec phase runs this in a fresh process)")
     parser.add_argument("--out", metavar="NPY", default=None,
                         help="with --decode: where to save the decoded points")
+    parser.add_argument("--decode-scene", metavar="DIR", default=None,
+                        help="only decode and evaluate the HAC scene handed "
+                        "off in DIR (the scene codec phase runs this in a "
+                        "fresh process)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if opts.decode is not None:
         return decode_main(opts.decode, opts.out)
+    if opts.decode_scene is not None:
+        return decode_scene_main(opts.decode_scene)
     dev = torch.device("cuda")
     # float32 matmuls in full precision (the default), stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1215,12 +1483,16 @@ def main() -> int:
 
     with Phase("build"):
         sources = ("tile_blend", "rans")
-        with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        with ThreadPoolExecutor(len(sources) + 1) as pool:  # one nvcc per source
+            host = pool.submit(native.load_host, "ac_coder")
             builds = list(pool.map(native.load, sources))
+            coder_lib = host.result()
         for name, built in zip(sources, builds):
             log(f"  {name}: nvcc {built.seconds:.3f} s -> {built.path.name}")
             for line in ptxas_lines(built.log):
                 log(f"  ptxas {line}")
+        log(f"  ac_coder (host): g++ {coder_lib.seconds:.3f} s -> "
+            f"{coder_lib.path.name}")
 
     with Phase("kernel"):
         gen = torch.Generator().manual_seed(SEED)
@@ -1661,6 +1933,9 @@ def main() -> int:
             f"({fe_by}: {fe_detail}); {int(counts_e.gt(EVAL_K).sum())} of "
             f"{rcfg_e.n_tiles} tiles over K; per-tile load largest "
             f"{int(per_tile_e.max())}, mean {float(per_tile_e.double().mean()):.1f}")
+
+    with Phase("scene codec"):
+        scene_codec_phase(dev, scene, tstate, tcfg)
 
     with Phase("reference"):
         # the whole slice on the card against the port's CPU path (plain

@@ -1,18 +1,26 @@
-"""Procedural soak scene and its training run (own copy of
-gauspcc_tpu/cli/soak.py:37-130, "textured" kind, and :188-217): clustered
-coloured Gaussians rendered from orbit cameras with the port's rasterizer as
-ground truth, plus seed points for the anchors; `train` trains HAC on it.
+"""Scene-scale soak (own copy of gauspcc_tpu/cli/soak.py:37-130, the
+"textured" kind, and :139-246): clustered coloured Gaussians rendered from
+orbit cameras with the port's rasterizer as ground truth, plus seed points
+for the anchors; `train` trains HAC on it, and `main` runs the whole
+pipeline, train -> estimate -> encode -> decode -> evaluate, and writes
+soak_summary.json.
 
 The numpy RNG calls run in the same order as the JAX package's
 build_scene, so one seed gives the same Gaussians, cameras and seed points
-in both.
+in both. Not ported (ROADMAP.md Queue 1 item 7): the heartbeat, the scalar
+logger, resume and the divergence abort.
 
-    python -m gauspcc_tpu_torch.cli.soak --iters 600 [--device cuda]
+    python -m gauspcc_tpu_torch.cli.soak --iters 30000 --out runs/soak_torch \
+        [--pcc_ckpt model/gauspcgc/best_model.npz] [--device cuda]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+import os
+import time
 from typing import Callable
 
 import numpy as np
@@ -106,12 +114,14 @@ def compressed_phase_schedule(iters: int) -> Callable[[int], int]:
 
 def train(scene: SyntheticScene, iters: int, *, voxel_size: float = 0.01,
           lmbda: float = 1e-3, white_background: bool = True, seed: int = 0,
-          log=print, log_every: int = 200, device="cuda", **opt_overrides):
+          log=print, log_every: int = 200, device="cuda", model_dir=None,
+          pcc_params=None, pcc_cfg=None, **opt_overrides):
     """Train HAC at the full HACConfig width on a soak scene, with the
     soak's OptConfig (update_until at half the run, at most 15,000) and,
     below 30,000 steps, its compressed phase schedule. `opt_overrides`
-    replace OptConfig fields. Returns (state, cfg, opt, results), results
-    as train_scene's."""
+    replace OptConfig fields; `model_dir`, `pcc_params` and `pcc_cfg` go to
+    train_scene (save, encode, decode, evaluate). Returns (state, cfg, opt,
+    results), results as train_scene's."""
     from gauspcc_tpu_torch.models.hac import model as hac
     from gauspcc_tpu_torch.models.hac import pipeline
     from gauspcc_tpu_torch.models.hac import train as hac_train
@@ -125,5 +135,63 @@ def train(scene: SyntheticScene, iters: int, *, voxel_size: float = 0.01,
     state, results = pipeline.train_scene(
         scene, cfg, opt, seed=seed, log_every=log_every,
         white_background=white_background, phase_of_step=phase_of_step,
-        log=log, device=device)
+        log=log, device=device, model_dir=model_dir, pcc_params=pcc_params,
+        pcc_cfg=pcc_cfg)
     return state, cfg, opt, results
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="gauspcc-torch-soak")
+    p.add_argument("--model", default="hac", choices=("hac",),
+                   help="the families HAC++, TC-GS and CAT-3DGS are not "
+                        "ported yet (ROADMAP.md Queue 1 item 7)")
+    p.add_argument("--iters", type=int, default=30_000)
+    p.add_argument("--hw", type=int, default=512)
+    p.add_argument("--gt_gaussians", type=int, default=6000)
+    p.add_argument("--cams", type=int, default=24)
+    p.add_argument("--seed_points", type=int, default=30_000)
+    p.add_argument("--bg", default="white", choices=("white", "black"))
+    p.add_argument("--voxel_size", type=float, default=0.01)
+    p.add_argument("--lmbda", type=float, default=1e-3)
+    p.add_argument("--out", default="runs/soak_torch")
+    p.add_argument("--pcc_ckpt", default="model/gauspcgc/best_model.npz")
+    p.add_argument("--log_every", type=int, default=200)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    from gauspcc_tpu_torch import convert
+
+    dev = resolve(args.device)
+    if not os.path.exists(args.pcc_ckpt):
+        raise SystemExit(f"--pcc_ckpt {args.pcc_ckpt!r}: no such file")
+    pcc_params = convert.load_codec_npz(args.pcc_ckpt, device=dev)
+    white_bg = args.bg == "white"
+    os.makedirs(args.out, exist_ok=True)
+    t0 = time.time()
+    scene = build_scene(np.random.default_rng(0), args.hw, args.gt_gaussians,
+                        args.cams, args.seed_points, white_background=white_bg,
+                        device=dev)
+    print(f"scene built in {time.time() - t0:.1f}s: "
+          f"{len(scene.train_cameras)} train / {len(scene.test_cameras)} "
+          f"test cams @ {args.hw}x{args.hw}, {scene.points.shape[0]} seeds")
+    t0 = time.time()
+    _, _, _, results = train(
+        scene, args.iters, voxel_size=args.voxel_size, lmbda=args.lmbda,
+        white_background=white_bg, log_every=args.log_every, device=dev,
+        model_dir=args.out, pcc_params=pcc_params)
+    wall = time.time() - t0
+    from gauspcc_tpu_torch.models.hac.pipeline import RESULT_KEYS
+
+    summary = {k: results[k] for k in RESULT_KEYS
+               if k in results and k != "per_view"}
+    summary.update(iteration=args.iters, train_wall_s=wall,
+                   ms_per_iter=wall / max(args.iters, 1) * 1e3)
+    with open(os.path.join(args.out, "soak_summary.json"), "w") as f:
+        json.dump(summary, f, indent=2, default=float)
+    print(f"soak done in {wall / 60:.1f} min ({summary['ms_per_iter']:.1f} "
+          f"ms/iter): PSNR {summary.get('psnr')}, size "
+          f"{summary.get('size_mb')} MB")
+
+
+if __name__ == "__main__":
+    main()

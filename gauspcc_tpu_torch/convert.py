@@ -22,22 +22,11 @@ import torch
 from gauspcc_tpu_torch.device import resolve
 from gauspcc_tpu_torch.fields.hashgrid import TABLE_NAMES
 from gauspcc_tpu_torch.models.hac import model as hac
+from gauspcc_tpu_torch.utils.checkpoint import flatten
 
 ANCHOR_FIELDS = ("anchor", "offset", "mask", "anchor_feat", "scaling",
                  "rotation", "opacity")
 MLP_NAMES = ("mlp_opacity", "mlp_cov", "mlp_color", "mlp_grid", "mlp_deform")
-
-
-def flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
-    """Nested dicts -> {"a/b/c": array}, the keys `save_pytree` writes."""
-    flat = {}
-    for k, v in tree.items():
-        key = f"{prefix}{k}"
-        if isinstance(v, Mapping):
-            flat.update(flatten(v, key + "/"))
-        else:
-            flat[key] = np.asarray(v)
-    return flat
 
 
 def state_from_numpy(tree: Mapping, cfg: hac.HACConfig,

@@ -1,5 +1,5 @@
 """CDF tables for the entropy coders (counterpart of
-gauspcc_tpu/core/cdf.py:21-45).
+gauspcc_tpu/core/cdf.py:21-97).
 
 A table is int32 `[N, Lp]` holding the uint16 values of the JAX package's
 tables: strictly increasing rows from 0, the final column (conceptually
@@ -8,11 +8,15 @@ values live in int32 and are masked to 16 bits.
 
 The cumulative sum runs column by column, left to right: a fixed order,
 so the encoder and the decoder compute the same tables on the same
-device, and no scan kernel chooses its own order. The Gaussian tables
-come with HAC's attribute coding.
+device, and no scan kernel chooses its own order. The discretized
+Gaussian tables are HAC's attribute models (the native coder evaluates the
+same CDF itself, `ops/coder.encode_gauss`); the mixture tables come with
+HAC++.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -37,3 +41,39 @@ def probs_to_cdf_int16(probs: torch.Tensor) -> torch.Tensor:
         cols.append(cols[-1] + probs[..., j])
     cdf = torch.stack(cols, dim=-1).clamp(0.0, 1.0)
     return normalize_cdf_int16(cdf)
+
+
+def gaussian_cdf(x: torch.Tensor, mean: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """Phi((x - mean) / scale) through erfc."""
+    return 0.5 * torch.special.erfc(-(x - mean) / (scale * math.sqrt(2.0)))
+
+
+def _table(samples, mean, scale):
+    scale = torch.clamp_min(scale, 1e-9)
+    cdf = gaussian_cdf(samples, mean[:, None], scale[:, None])
+    return normalize_cdf_int16(cdf.clamp(0.0, 1.0))
+
+
+def gaussian_cdf_table(mean: torch.Tensor, scale: torch.Tensor,
+                       q: torch.Tensor, min_value: int,
+                       max_value: int) -> torch.Tensor:
+    """Per-row discretized-Gaussian CDF table, int16-normalized: [N, Lp],
+    Lp = max - min + 2; row i, column j holds
+    Phi(((min_value + j) - 0.5) q[i]; mean[i], scale[i])."""
+    lp = int(max_value) - int(min_value) + 2
+    cols = torch.arange(lp, dtype=torch.float32, device=mean.device)
+    return _table((cols + (min_value - 0.5)) * q[:, None], mean, scale)
+
+
+def gaussian_cdf_table_residual(mean: torch.Tensor, scale: torch.Tensor,
+                                q: torch.Tensor, rmin: int,
+                                rmax: int) -> torch.Tensor:
+    """The table over residuals r = round(x / q) - round(mean / q): the
+    columns cover rmin..rmax around each row's centre round(mean / q),
+    which encoder and decoder both compute from the shared model."""
+    lp = int(rmax) - int(rmin) + 2
+    offset = torch.round(mean / q)
+    cols = torch.arange(lp, dtype=torch.float32, device=mean.device)
+    return _table((offset[:, None] + cols + (rmin - 0.5)) * q[:, None],
+                  mean, scale)

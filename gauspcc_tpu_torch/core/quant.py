@@ -13,6 +13,7 @@ import torch
 
 USE_CLAMP = True
 CLAMP_STEPS = 15_000
+ANCHOR_ROUND_DIGITS = 16  # bits per anchor coordinate in the size estimate
 
 
 class _STEBinary(torch.autograd.Function):

@@ -1,4 +1,6 @@
-"""Camera model for eval renders (own copy of gauspcc_tpu/data/cameras.py:18-60).
+"""Camera model (own copy of gauspcc_tpu/data/cameras.py:18-73), with the
+field-of-view conversions and the NeRF++ radius normalization the scene
+readers use.
 
 `world_view_transform` is W2V^T, so points transform as row vectors
 ([p, 1] @ viewmatrix), the convention the rasterizer uses.
@@ -21,6 +23,7 @@ class Camera:
     width: int
     height: int
     image: np.ndarray | None = None  # [3, H, W] float32 in [0,1]
+    image_name: str = ""
 
     def _w2v(self) -> np.ndarray:
         w2v = np.eye(4, dtype=np.float32)
@@ -44,3 +47,21 @@ class Camera:
     @property
     def tanfovy(self) -> float:
         return float(np.tan(self.fovy * 0.5))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * np.arctan(pixels / (2.0 * focal))
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2.0 * np.tan(fov / 2.0))
+
+
+def get_nerfpp_norm(cameras: list[Camera]) -> dict:
+    """Scene radius normalization: 1.1 x the largest camera distance from
+    the cameras' mean centre."""
+    centers = np.stack([c.camera_center for c in cameras])
+    avg = centers.mean(axis=0, keepdims=True)
+    dist = np.linalg.norm(centers - avg, axis=1)
+    radius = float(dist.max()) * 1.1
+    return {"translate": -avg[0], "radius": radius if radius > 0 else 1.0}

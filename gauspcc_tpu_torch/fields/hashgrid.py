@@ -159,3 +159,17 @@ class MixedTables(nn.Module):
     def flat(self) -> torch.Tensor:
         """All embeddings concatenated in the order xyz, xy, xz, yz."""
         return torch.cat([getattr(self, n) for n in TABLE_NAMES])
+
+
+@torch.no_grad()
+def unflatten_tables(spec: MixedGridSpec, flat: torch.Tensor) -> MixedTables:
+    """The inverse of `MixedTables.flat`: tables from `[rows, F]` rows in
+    the order xyz, xy, xz, yz, on flat's device."""
+    n3, n2 = spec.xyz.n_rows, spec.plane.n_rows
+    if flat.shape != (n3 + 3 * n2, spec.xyz.n_features):
+        raise ValueError(f"flat tables {tuple(flat.shape)} do not fit the "
+                         f"spec's {n3 + 3 * n2} rows of {spec.xyz.n_features}")
+    tables = MixedTables(spec).to(flat.device)
+    for name, part in zip(TABLE_NAMES, torch.split(flat, [n3, n2, n2, n2])):
+        getattr(tables, name).copy_(part)
+    return tables

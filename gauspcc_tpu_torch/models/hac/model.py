@@ -213,15 +213,25 @@ def get_mask(state: State, decoded: bool = False) -> torch.Tensor:
     return ((s > 0.01).to(torch.float32) - s).detach() + s
 
 
-def get_mask_anchor(state: State) -> torch.Tensor:
+def get_mask_anchor(state: State, decoded: bool = False) -> torch.Tensor:
     """Anchors with any offset's mask on, among the valid ones [cap]."""
-    return (get_mask(state).sum(1)[:, 0] > 0) & state["valid"]
+    return (get_mask(state, decoded).sum(1)[:, 0] > 0) & state["valid"]
 
 
-def encoding_params_flat(state: State) -> torch.Tensor:
+def encoding_params_flat(state: State, binarize: bool = True) -> torch.Tensor:
     """Every hash-grid embedding, in the order xyz, xy, xz, yz, through the
-    sign STE."""
-    return ste_binary(state["nets"].tables.flat())
+    sign STE unless `binarize` is False."""
+    flat = state["nets"].tables.flat()
+    return ste_binary(flat) if binarize else flat
+
+
+def mlp_size_bits(state: State, digit: int = 32) -> int:
+    """The networks' size in the scene's total: every `mlp*` net but the
+    deform one, `digit` bits a parameter."""
+    total = sum(p.numel() for name, net in state["nets"].named_children()
+                if name.startswith("mlp") and "deform" not in name
+                for p in net.parameters())
+    return total * digit
 
 
 def update_anchor_bound(state: State) -> State:

@@ -1,28 +1,33 @@
-"""HAC scene pipeline: train a scene, render the held-out views and score
-them against ground truth (counterpart of gauspcc_tpu/models/hac/pipeline.py:
-_raster_cfg :34, select_eval_d :75, select_eval_k :94, adapt_caps :121,
-train_scene :150, render_sets :414, evaluate :447).
+"""HAC scene pipeline: train a scene, then estimate, encode, decode and
+evaluate it, rendering the held-out views and scoring them against ground
+truth (counterpart of gauspcc_tpu/models/hac/pipeline.py: _raster_cfg :34,
+select_eval_d :75, select_eval_k :94, adapt_caps :121, train_scene :150
+with its codec tail :365-405, render_sets :414, evaluate :447).
 
 LPIPS is not computed (no VGG weights are available), and no PNG is
-written: the renders come back as tensors. `train_scene` has no
-checkpoint, resume, GUI, heartbeat or divergence canary, and runs no codec
-at its end.
+written: the renders come back as tensors. `train_scene` has no resume
+checkpoint, GUI, heartbeat or divergence canary (ROADMAP.md Queue 1 item
+7).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
+from gauspcc_tpu_torch.codecs.gauspcgc import model as pcc_model
 from gauspcc_tpu_torch.device import resolve
+from gauspcc_tpu_torch.models.hac import codec as hac_codec
 from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.models.hac import render as hac_render
 from gauspcc_tpu_torch.models.hac import train as hac_train
 from gauspcc_tpu_torch.render import raster
-from gauspcc_tpu_torch.utils import image as img_lib
+from gauspcc_tpu_torch.utils import checkpoint, image as img_lib
 
 
 def _raster_cfg(cam, max_k: int = 256, max_d: int = 32) -> raster.RasterConfig:
@@ -37,7 +42,8 @@ def _device(state) -> torch.device:
 
 
 @torch.no_grad()
-def select_eval_d(state, cfg: hac.HACConfig, cameras, cap: int = 128) -> int:
+def select_eval_d(state, cfg: hac.HACConfig, cameras, decoded: bool = False,
+                  cap: int = 128) -> int:
     """Smallest power-of-two D (from 4, at most `cap`) that covers the
     largest tile footprint over all views: below the cap it renders exactly
     as an unbounded D, and it only shrinks the binning sort."""
@@ -45,9 +51,9 @@ def select_eval_d(state, cfg: hac.HACConfig, cameras, cap: int = 128) -> int:
     for cam in cameras:
         rcfg = _raster_cfg(cam)
         ca = hac_render.CameraArrays.from_camera(cam, _device(state))
-        visible = hac_render.prefilter_voxel(state, cfg, ca, rcfg)
+        visible = hac_render.prefilter_voxel(state, cfg, ca, rcfg, decoded)
         ng, _ = hac.generate_neural_gaussians(state, cfg, ca.camera_center,
-                                              visible)
+                                              visible, decoded=decoded)
         fp = raster.max_tile_footprint(ng.xyz, ng.scaling, ng.rot,
                                        ca.viewmatrix, rcfg, valid=ng.valid)
         worst = max(worst, int(fp))
@@ -114,19 +120,33 @@ def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
                 seed: int = 0, log_every: int = 200,
                 white_background: bool = False,
                 phase_of_step: Callable[[int], int] = hac_train.phase_of_step,
-                log=print, device="cuda"):
+                log=print, device="cuda", model_dir: str | None = None,
+                pcc_params=None, pcc_cfg=None, eval_at_end: bool = True):
     """Train one scene; returns (state, results).
 
     The loop of the JAX package's train_scene: cameras in the order of
     rng.permutation, the raster caps adapted every CAP_ADAPT_EVERY steps,
     the anchor bound refitted on entering phase 2, densification every
-    `update_interval` steps between update_from and update_until.
+    `update_interval` steps between update_from and update_until. Unlike
+    the JAX package's, the anchors are kept in the codec's order from the
+    start and after each densification (`train.sort_anchors`), so the
+    decoded scene renders as the trained one did.
     `phase_of_step` maps a step to its schedule stage (a compressed one for
     short runs, cli/soak.py). results: "history" (per step: step, phase,
     loss, l1, psnr, bit_per_param, non-finite gradients, copied to the host
     once at the end), "densify" (per densification: step and adjust_anchor's
     info), "caps" (per cap change: step, D, K), "rcfg", "opt_state",
-    "stats"."""
+    "stats".
+
+    With `model_dir` the trained state is saved there as model.npz (the
+    JAX package's keys); with `pcc_params` (a GausPcgc network, `pcc_cfg`
+    its NetConfig) and `eval_at_end` the scene is then estimated, encoded
+    into model_dir/bitstreams, decoded, and both the decoded and the float
+    state are evaluated on the test views (the first two training views
+    when there are none). results then also has the decoded state's
+    evaluation ("psnr", "ssim", "eval_k", "eval_d", "fps", "per_view"),
+    "psnr_float", "codec_delta_db" (float minus decoded), "size_bits" and
+    "size_mb", which results.json in model_dir holds."""
     dev = resolve(device)
     optimizer = hac_train.make_optimizer(opt, scene.cameras_extent)
     cams = scene.train_cameras
@@ -141,6 +161,9 @@ def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
     params, rest = hac.split_state(state)
     opt_state = optimizer.init(hac_train.param_leaves(params))
     stats = hac_train.zero_stats(rest["valid"].shape[0], cfg.n_offsets, dev)
+    # train in the order the codec ships the anchors (sort_anchors)
+    state, stats, opt_state = hac_train.sort_anchors(state, stats, opt_state, cfg)
+    params, rest = hac.split_state(state)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     rng = np.random.default_rng(seed)
     order = rng.permutation(len(cam_arrays)).tolist()
@@ -184,6 +207,8 @@ def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
                 and it % opt.update_interval == 0 and not 3000 <= it < 4000):
             state, stats, opt_state, info = hac_train.adjust_anchor(
                 hac.merge_state(params, rest), stats, opt_state, cfg, opt, rng)
+            state, stats, opt_state = hac_train.sort_anchors(
+                state, stats, opt_state, cfg)
             params, rest = hac.split_state(state)
             densify.append((it, info))
             log(f"iter {it}: anchors {info['n_anchors']} "
@@ -200,7 +225,51 @@ def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
         "densify": densify, "caps": caps, "rcfg": rcfg,
         "opt_state": opt_state, "stats": stats,
     }
-    return hac.merge_state(params, rest), results
+    state = hac.merge_state(params, rest)
+    if model_dir is not None:
+        os.makedirs(model_dir, exist_ok=True)
+        checkpoint.save_pytree(os.path.join(model_dir, "model.npz"), state)
+        if eval_at_end and pcc_params is not None:
+            results.update(_code_and_evaluate(
+                state, cfg, scene, model_dir, pcc_params, pcc_cfg,
+                white_background, log))
+    return state, results
+
+
+RESULT_KEYS = ("psnr", "ssim", "eval_k", "eval_d", "fps", "per_view",
+               "psnr_float", "codec_delta_db", "size_bits", "size_mb")
+
+
+def _code_and_evaluate(state, cfg, scene, model_dir, pcc_params, pcc_cfg,
+                       white_background, log) -> dict:
+    """train_scene's tail: estimate, encode, decode, evaluate the decoded
+    and the float state, write results.json."""
+    pcc_cfg = pcc_cfg if pcc_cfg is not None else pcc_model.NetConfig()
+    _, est_log = hac_codec.estimate_final_bits(state, cfg)
+    log(est_log)
+    bs_dir = os.path.join(model_dir, "bitstreams")
+    sizes, enc_log = hac_codec.conduct_encoding(state, cfg, bs_dir, pcc_params,
+                                                pcc_cfg)
+    log(enc_log)
+    dec_state, dec_log = hac_codec.conduct_decoding(state, cfg, bs_dir,
+                                                    pcc_params, pcc_cfg)
+    log(dec_log)
+    cams = scene.test_cameras or scene.train_cameras[:2]
+    results = evaluate(dec_state, cfg, cams, white_background=white_background,
+                       decoded=True, auto_k=True)
+    float_res = evaluate(state, cfg, cams, white_background=white_background,
+                         auto_k=True)
+    results["psnr_float"] = float_res["psnr"]
+    if results["psnr"] is not None and float_res["psnr"] is not None:
+        results["codec_delta_db"] = float_res["psnr"] - results["psnr"]
+    results["size_bits"] = sizes
+    results["size_mb"] = sizes["total"] / hac_codec.BIT2MB
+    out = {k: results[k] for k in RESULT_KEYS if k in results}
+    with open(os.path.join(model_dir, "results.json"), "w") as f:
+        json.dump(out, f, indent=2, default=float)
+    log(f"eval: PSNR {results['psnr']}, size {results['size_mb']:.4f} MB, "
+        f"codec delta {results.get('codec_delta_db')} dB")
+    return out
 
 
 class _ViewTimer:
@@ -230,8 +299,8 @@ class _ViewTimer:
 
 @torch.no_grad()
 def render_sets(state, cfg: hac.HACConfig, cameras,
-                white_background: bool = False, max_k: int = 256,
-                max_d: int = 32):
+                white_background: bool = False, decoded: bool = False,
+                max_k: int = 256, max_d: int = 32):
     """Render all views. Returns (renders [3, H, W] each, ms per view).
 
     Each shape bucket gets one untimed warm-up render first, so the times
@@ -244,10 +313,11 @@ def render_sets(state, cfg: hac.HACConfig, cameras,
         rcfg = _raster_cfg(cam, max_k, max_d)
         ca = hac_render.CameraArrays.from_camera(cam, dev)
         if rcfg not in warmed:
-            hac_render.render_image(state, cfg, ca, rcfg, bg)
+            hac_render.render_image(state, cfg, ca, rcfg, bg, decoded=decoded)
             warmed.add(rcfg)
         with _ViewTimer(dev) as t:
-            img = hac_render.render_image(state, cfg, ca, rcfg, bg)
+            img = hac_render.render_image(state, cfg, ca, rcfg, bg,
+                                          decoded=decoded)
         renders.append(img)
         ms.append(t.ms)
     return renders, ms
@@ -255,17 +325,19 @@ def render_sets(state, cfg: hac.HACConfig, cameras,
 
 @torch.no_grad()
 def evaluate(state, cfg: hac.HACConfig, cameras, max_k: int = 1024,
-             white_background: bool = False, auto_k: bool = False) -> dict:
-    """PSNR/SSIM of the STE-quantised renders against the cameras'
+             white_background: bool = False, auto_k: bool = False,
+             decoded: bool = False) -> dict:
+    """PSNR/SSIM of the STE-quantised renders (of the decoded state's
+    attributes as they are, with `decoded`) against the cameras'
     ground-truth images.
 
     K is the per-tile cap (the r5 soak evaluated at 1024), or with `auto_k`
     the smallest visually lossless one on the first camera
     (`select_eval_k`); D comes from `select_eval_d`, capped at 128."""
     if auto_k and cameras:
-        max_k = select_eval_k(state, cfg, cameras[0])
-    max_d = select_eval_d(state, cfg, cameras)
-    renders, ms = render_sets(state, cfg, cameras, white_background,
+        max_k = select_eval_k(state, cfg, cameras[0], decoded=decoded)
+    max_d = select_eval_d(state, cfg, cameras, decoded=decoded)
+    renders, ms = render_sets(state, cfg, cameras, white_background, decoded,
                               max_k=max_k, max_d=max_d)
     per_view = {}
     for i, (cam, img) in enumerate(zip(cameras, renders)):

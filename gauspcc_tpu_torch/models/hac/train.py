@@ -8,7 +8,8 @@ Adam and accumulates the densification statistics, all on the device: its
 metrics stay tensors, so a step makes no host sync of its own. Anchor
 growth and pruning run on the host in numpy every `update_interval`
 steps, rewrite the fixed-capacity buffers and remap the Adam moments of
-the per-anchor groups.
+the per-anchor groups. `sort_anchors` puts the anchors in the order the
+scene codec codes them.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.models.hac import render as hac_render
+from gauspcc_tpu_torch.ops import sparse
 from gauspcc_tpu_torch.render import raster
 from gauspcc_tpu_torch.utils import optim
 
@@ -346,3 +348,35 @@ def adjust_anchor(state, stats, opt_state, cfg: hac.HACConfig, opt: OptConfig,
         "n_anchors": n_total, "n_added": int(n_new),
         "n_pruned": int(prune.sum()), "recompiled": new_cap != cap,
     }
+
+
+@torch.no_grad()
+def sort_anchors(state, stats, opt_state, cfg: hac.HACConfig):
+    """Put the valid anchors first, in the order the scene codec codes them
+    (the morton order of their voxels, `models/hac/codec.py`), moving their
+    Adam moments and densification statistics with them. A render blends
+    Gaussians whose tile-sort keys are equal (the key keeps about 2^-10 of
+    the depth) in the order of their rows, so a scene that trains in this
+    order renders after decoding as it rendered in training. Returns
+    (state, stats, opt_state)."""
+    valid = state["valid"]
+    dev = valid.device
+    idx = torch.nonzero(valid)[:, 0]
+    anchor_int = torch.round(hac.get_anchor(state, cfg)[idx] / cfg.voxel_size)
+    order = sparse.morton_order_np(anchor_int.to(torch.int64).cpu().numpy())
+    rows = torch.cat([idx[torch.as_tensor(order, device=dev)],
+                      torch.nonzero(~valid)[:, 0]])
+    k = cfg.n_offsets
+    offset_rows = (rows[:, None] * k + torch.arange(k, device=dev)).reshape(-1)
+    state = dict(state, anchors={n: v[rows] for n, v in state["anchors"].items()},
+                 valid=valid[rows])
+    stats = {n: v[offset_rows if n.startswith("offset") else rows]
+             for n, v in stats.items()}
+
+    def permute(moments):
+        return {n: v[rows] if n.startswith("anchors/") else v
+                for n, v in moments.items()}
+
+    opt_state = dict(opt_state, mu=permute(opt_state["mu"]),
+                     nu=permute(opt_state["nu"]))
+    return state, stats, opt_state

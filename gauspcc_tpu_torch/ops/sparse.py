@@ -1,6 +1,6 @@
 """The occupancy pyramid of a voxel cloud (host, numpy): the port's copy of
-gauspcc_tpu/ops/sparse.py:42-135 (`lex_key_np`, `dedupe_lex_np`,
-`build_occupancy_pyramid`).
+gauspcc_tpu/ops/sparse.py:42-135 (`lex_key_np`, `morton_order_np`,
+`dedupe_lex_np`, `build_occupancy_pyramid`).
 
 Voxels are ordered lexicographically with z most significant. A parent is
 child >> 1; its occupancy byte ORs 2^(x%2 + 2*(y%2) + 4*(z%2)) over its
@@ -16,6 +16,18 @@ def lex_key(coords: np.ndarray, dims) -> np.ndarray:
     """int64 key, z most significant: ((z*Y + y)*X + x)."""
     c = coords.astype(np.int64)
     return (c[:, 2] * int(dims[1]) + c[:, 1]) * int(dims[0]) + c[:, 0]
+
+
+def morton_order_np(xyz: np.ndarray) -> np.ndarray:
+    """The order HAC codes its anchors in (the reference's
+    calculate_morton_order, despite the name a lexicographic one): shift to
+    the minimum, then a stable argsort of x + y (M + 1) + z (M + 1)^2 with M
+    the largest shifted coordinate."""
+    x = np.asarray(xyz).astype(np.int64)
+    x = x - x.min(axis=0, keepdims=True)
+    m = int(x.max()) + 1
+    key = x @ np.power(m, np.arange(3, dtype=np.int64))
+    return np.argsort(key, kind="stable")
 
 
 def dedupe_lex(coords: np.ndarray) -> np.ndarray:
