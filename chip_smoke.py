@@ -63,6 +63,21 @@ non-zero exit and no result line:
           the decoded ones, and its PSNR with its rows in a seeded random
           order (the renderer's order sensitivity, printed); codec_delta_db
           (the float PSNR minus the decoded one) within +-0.01 dB
+  hac_plus  HAC++ (`soak.train(model="hac_plus")`) on the same scene at the
+          full HACPlusConfig width (feat_dim 50 in 5 chunks of 10, 10
+          offsets, mlp_grid 225 wide, the full channel context), 600 steps
+          as the train phase runs HAC, with the same checks (finite loss
+          falling in phase 0, bits per parameter > 0 in phase 2, two
+          densifications, held-out PSNR above the serve phase's), the
+          channel context moved by phase 2, both kernels' launches; its
+          scene stream encoded twice (the same sizes), split into anchors,
+          context, chunk mixtures (CUDA events) and host coder, beside
+          HAC's sizes; decoded in a fresh process (--decode-scene, the
+          family read from the handoff) with every value exact, each of the
+          five feature chunks too, K5 and K1 launches counted and one
+          decoded frame checked against the plain blend; codec_delta_db
+          printed, not held (the float eval of a HAC++ state renders
+          unquantised attributes, as the JAX package's does)
   reference  the whole slice at small widths on a 64x64 scene, on the card
           and through the port's CPU path, compared: ground truth, eval
           renders, and 3 training steps at phase 0
@@ -105,8 +120,10 @@ symbols and prev, and the same packed stream, on the finest level's
 tables and on every random case; each of the finest level's stages is
 timed in turns (baseline, kernel, kernel, baseline) beside the kernels.
 
-Then one JSON line per the port's kernels (launches, error, times, bound)
-and, last, {"ok": true, "device": {...}}. Nothing is written into the tree
+Then one JSON line per the port's kernels (launches, error, times, bound;
+`launches_hac_plus`, each kernel's launches on the HAC++ path: training's
+for the blend kernels, the scene encode's and decode's for rANS) and,
+last, {"ok": true, "device": {...}}. Nothing is written into the tree
 except the builds under gauspcc_tpu_torch/build/ (gitignored); the codecs'
 streams, the handed-off state and the decoded points go to temporary
 directories.
@@ -114,8 +131,9 @@ directories.
 With --decode BIN --out NPY it only decodes BIN with the r5 weights, twice
 (the two must agree), saves the first decode's points to NPY and prints one
 JSON line with the decode times, the per-level profile and the launches.
-With --decode-scene DIR it only decodes and evaluates the scene the scene
-codec phase handed off in DIR and prints one JSON line.
+With --decode-scene DIR it only decodes and evaluates the scene (of
+either family) that the scene codec or the hac_plus phase handed off in DIR
+and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -142,11 +160,14 @@ from gauspcc_tpu_torch.codecs.gauspcgc import codec as pcgc_codec
 from gauspcc_tpu_torch.codecs.gauspcgc import model as pcgc_model
 from gauspcc_tpu_torch.core import cdf
 from gauspcc_tpu_torch.core.quant import ste_multistep
+from gauspcc_tpu_torch.models import registry
 from gauspcc_tpu_torch.models.hac import codec as hac_codec
 from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.models.hac import pipeline
 from gauspcc_tpu_torch.models.hac import render as hac_render
 from gauspcc_tpu_torch.models.hac import train as hac_train
+from gauspcc_tpu_torch.models.hac_plus import codec as hacp_codec
+from gauspcc_tpu_torch.models.hac_plus import model as hacp
 from gauspcc_tpu_torch.ops import rans, sibconv, sparse
 from gauspcc_tpu_torch.render import raster, tile_blend
 from gauspcc_tpu_torch.utils import checkpoint, image as img_lib
@@ -1213,6 +1234,43 @@ def codec_phase(dev, baseline_rans: Path | None = None) -> list[dict]:
     return rows
 
 
+def training_report(tres) -> None:
+    """The training run's loss per phase, densifications, raster caps and
+    non-finite gradients; raises unless the loss is finite and falls in
+    phase 0, bits per parameter are > 0 in phase 2 and at least two
+    densifications ran."""
+    h = tres["history"]
+    for ph in (0, 1, 2):
+        sel = h["phase"] == ph
+        log(f"  phase {ph}: {int(sel.sum())} steps, loss mean "
+            f"{h['loss'][sel].mean():.5f} (first {h['loss'][sel][0]:.5f}, "
+            f"last {h['loss'][sel][-1]:.5f}), train PSNR mean "
+            f"{h['psnr'][sel].mean():.3f} dB, bits per parameter mean "
+            f"{h['bit_per_param'][sel].mean():.4f}")
+    if not np.isfinite(h["loss"]).all():
+        raise RuntimeError("non-finite training loss")
+    p0 = h["loss"][h["phase"] == 0]
+    log(f"  phase 0 loss: first 50 steps {p0[:50].mean():.5f}, last 50 "
+        f"{p0[-50:].mean():.5f}")
+    if not p0[-50:].mean() < p0[:50].mean():
+        raise RuntimeError("the phase-0 loss did not fall")
+    if not (h["bit_per_param"][h["phase"] == 2] > 0).all():
+        raise RuntimeError("bit_per_param is not > 0 in phase 2")
+    for it, info in tres["densify"]:
+        log(f"  densify at step {it}: {info['n_anchors']} anchors "
+            f"(+{info['n_added']} / -{info['n_pruned']}), capacity grown: "
+            f"{info['recompiled']}")
+    if len(tres["densify"]) < 2:
+        raise RuntimeError("fewer than two densifications")
+    rcfg_t = tres["rcfg"]
+    log(f"  raster caps after adapt_caps: " + (", ".join(
+        f"step {it}: D={d} K={k}" for it, d, k in tres["caps"]) or "unchanged")
+        + f"; final D={rcfg_t.max_tiles_per_gaussian} "
+        f"K={rcfg_t.max_gaussians_per_tile}")
+    log(f"  non-finite gradient components over the run: "
+        f"{int(h['nonfinite_grads'].sum())}")
+
+
 def scene_mlp_bits(state) -> int:
     """32 bits a parameter of mlp_opacity, mlp_cov, mlp_color and mlp_grid,
     counted here apart from the codec's own `mlp_size_bits`."""
@@ -1260,9 +1318,41 @@ def float_eval_diagnostics(state, cfg, scene, values, index, float_psnr) -> None
         f"the coded order (the renderer's order sensitivity; not checked)")
 
 
-def scene_codec_phase(dev, scene, tstate, tcfg) -> None:
+def decode_in_fresh_process(tmp: str, model: str, state, cfg, scene, values,
+                            data) -> tuple[dict, float]:
+    """Hand the stream in tmp/bitstreams to a fresh process (this script
+    with --decode-scene): the family's name and configuration, the state,
+    the held-out views and what the decoder must give back. Returns (the
+    decoder's JSON line, the child's wall seconds)."""
+    checkpoint.save_pytree(str(Path(tmp) / "state.npz"), state)
+    with open(Path(tmp) / "cfg.json", "w") as f:
+        json.dump({"model": model, "cfg": cfg._asdict()}, f)
+    with open(Path(tmp) / "cams.pkl", "wb") as f:
+        pickle.dump(scene.test_cameras, f)
+    np.savez(Path(tmp) / "expect.npz",
+             anchor=data["anchor_int"].astype(np.float32) * cfg.voxel_size,
+             mask=data["mask"].cpu().numpy(),
+             hash=hac.encoding_params_flat(state).detach().cpu().numpy()
+             .astype(np.int8),
+             **{k: v.cpu().numpy() for k, v in values.items()})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--decode-scene", tmp],
+                          capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the scene decoding process failed (exit "
+                           f"{proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                           f"{proc.stderr[-4000:]}")
+    for line in proc.stdout.strip().splitlines()[:-1]:
+        log(f"  (decoder) {line}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), child_s
+
+
+def scene_codec_phase(dev, scene, tstate, tcfg) -> dict:
     """HAC's scene bitstream on the trained state: estimate, encode, hand
-    the stream to a fresh process that decodes and evaluates it, compare."""
+    the stream to a fresh process that decodes and evaluates it, compare.
+    Returns the encoded sizes."""
     pcc_cfg = pcgc_model.NetConfig()
     net = convert.load_codec_npz(SCENE_CODEC_WEIGHTS, pcc_cfg, device=dev)
     log(f"  anchors' codec: {SCENE_CODEC_WEIGHTS.relative_to(ROOT)}, {pcc_cfg}")
@@ -1301,32 +1391,9 @@ def scene_codec_phase(dev, scene, tstate, tcfg) -> None:
         if sizes["mlps"] != scene_mlp_bits(tstate):
             raise RuntimeError(f"mlps {sizes['mlps']} bits, the parameters "
                                f"give {scene_mlp_bits(tstate)}")
-        # the handoff: the state, the held-out views, and what the decoder
-        # must give back
         data = hac_codec._gather_sorted_attributes(tstate, tcfg)
-        checkpoint.save_pytree(str(Path(tmp) / "state.npz"), tstate)
-        with open(Path(tmp) / "cfg.json", "w") as f:
-            json.dump(tcfg._asdict(), f)
-        with open(Path(tmp) / "cams.pkl", "wb") as f:
-            pickle.dump(scene.test_cameras, f)
-        np.savez(Path(tmp) / "expect.npz",
-                 anchor=data["anchor_int"].astype(np.float32) * tcfg.voxel_size,
-                 mask=data["mask"].cpu().numpy(),
-                 hash=hac.encoding_params_flat(tstate).detach().cpu().numpy()
-                 .astype(np.int8),
-                 **{k: v.cpu().numpy() for k, v in values.items()})
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--decode-scene", tmp],
-                              capture_output=True, text=True, timeout=900)
-        child_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"the scene decoding process failed (exit "
-                               f"{proc.returncode}):\n{proc.stdout[-4000:]}\n"
-                               f"{proc.stderr[-4000:]}")
-        for line in proc.stdout.strip().splitlines()[:-1]:
-            log(f"  (decoder) {line}")
-        dec = json.loads(proc.stdout.strip().splitlines()[-1])
+        dec, child_s = decode_in_fresh_process(tmp, "hac", tstate, tcfg, scene,
+                                               values, data)
         # the finest level of the anchors' cloud: both rANS kernels against
         # their plain versions on its tables
         g, tables, syms = finest_level(data["anchor_int"], net, pcc_cfg, dev)
@@ -1360,30 +1427,141 @@ def scene_codec_phase(dev, scene, tstate, tcfg) -> None:
     if not abs(delta) <= SCENE_DELTA_DB:
         raise RuntimeError(f"codec_delta_db {delta:+.5f} outside "
                            f"+-{SCENE_DELTA_DB}")
+    return sizes
+
+
+def hac_plus_phase(dev, scene, serve_psnr: float, hac_sizes: dict) -> dict:
+    """HAC++ on the soak scene at the full HACPlusConfig width: train
+    through the soak's schedule, check it, encode twice, decode and evaluate
+    in a fresh process, evaluate the float state. Returns the path's
+    launches of each kernel."""
+    tile_blend.launches = 0
+    tile_blend.backward_launches = 0
+    t0 = time.perf_counter()
+    state, cfg, _, res = soak.train(
+        scene, TRAIN_STEPS, model="hac_plus", voxel_size=VOXEL_SIZE,
+        white_background=True, log=lambda m: log(f"  {m}"), log_every=100,
+        device=dev, **TRAIN_DENSIFY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = tile_blend.launches, tile_blend.backward_launches
+    nets = state["nets"]
+    log(f"  HACPlusConfig: feat_dim {cfg.feat_dim} ({hacp.N_CHUNKS} chunks of "
+        f"{cfg.chunk}), {cfg.n_offsets} offsets, mlp_grid "
+        f"{nets.mlp_grid.fc1.out_features} wide, channel context "
+        f"{'tiny' if cfg.tiny_ctx else 'full'} "
+        f"({sum(p.numel() for p in nets.channel_ctx.parameters())} parameters)")
+    log(f"  {TRAIN_STEPS} steps in {wall:.3f} s ({wall / TRAIN_STEPS * 1e3:.3f} "
+        f"ms a step, densification and cap checks included); tile_blend "
+        f"launches {fwd}, backward launches {bwd}")
+    if fwd == 0 or bwd == 0:
+        raise RuntimeError("HAC++ training did not launch both blend kernels")
+    training_report(res)
+    # the channel context has no gradient before phase 2 (its objective is
+    # the rate's), so what moved it is phase 2
+    init = hacp.HACPlusNets(cfg).init_seeded(np.random.default_rng(SEED))
+    moved = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(nets.channel_ctx.parameters(),
+                                init.channel_ctx.parameters()))
+    log(f"  channel_ctx: largest change from its seeded init {moved:.4e}")
+    if not moved > 0:
+        raise RuntimeError("phase 2 did not train the channel context")
+    trained = pipeline.evaluate(state, cfg, scene.test_cameras, max_k=EVAL_K,
+                                white_background=True)
+    log(f"  held-out PSNR {trained['psnr']:.3f} dB trained (float attributes, "
+        f"as the JAX package renders a HAC++ state), {serve_psnr:.3f} dB "
+        f"untrained (serve phase); K={trained['eval_k']} D={trained['eval_d']}")
+    if not trained["psnr"] > serve_psnr:
+        raise RuntimeError("HAC++ training did not raise the held-out PSNR")
+
+    pcc_cfg = pcgc_model.NetConfig()
+    net = convert.load_codec_npz(SCENE_CODEC_WEIGHTS, pcc_cfg, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        bs_dir = str(Path(tmp) / "bitstreams")
+        t0 = time.perf_counter()
+        first, _ = hacp_codec.conduct_encoding(state, cfg, bs_dir, net, pcc_cfg)
+        log(f"  first encode (set-up included): {time.perf_counter() - t0:.3f} s")
+        values, prof = {}, {}
+        rans.encode_launches = 0
+        sizes, _ = hacp_codec.conduct_encoding(state, cfg, bs_dir, net, pcc_cfg,
+                                               values=values, profile=prof)
+        enc_launches = rans.encode_launches
+        if sizes != first:
+            raise RuntimeError(f"two encodes of one state differ: {first} vs "
+                               f"{sizes}")
+        n = values["feat"].shape[0]
+        batches = (n + hacp_codec.BATCH - 1) // hacp_codec.BATCH
+        log(f"  encode: {prof['total_s']:.4f} s wall, {n} anchors: anchors "
+            f"(GausPcgc) {prof['anchors_s']:.4f} s, context "
+            f"{prof['context_ms']:.3f} ms and chunk mixtures "
+            f"{prof['mixture_ms']:.3f} ms (CUDA events, {batches} batches, "
+            f"{hacp.N_CHUNKS * batches} feature streams), host coder "
+            f"{prof['coder_s']:.4f} s (host wall clock), the rest "
+            f"{prof['total_s'] - prof['anchors_s'] - prof['coder_s']:.4f} s; "
+            f"rans_encode launches {enc_launches}")
+        log("  encoded sizes, HAC++ beside HAC (this run): " + ", ".join(
+            f"{k} {v / hac_codec.BIT2MB:.4f} MB ({hac_sizes[k] / hac_codec.BIT2MB:.4f})"
+            for k, v in sizes.items()))
+        if enc_launches == 0:
+            raise RuntimeError("the HAC++ encode did not launch the rans "
+                               "encode kernel")
+        if sizes["mlps"] != scene_mlp_bits(state):
+            raise RuntimeError(f"mlps {sizes['mlps']} bits, the four MLPs' "
+                               f"parameters give {scene_mlp_bits(state)}")
+        data = hac_codec._gather_sorted_attributes(state, cfg.as_hac())
+        dec, child_s = decode_in_fresh_process(tmp, "hac_plus", state, cfg,
+                                               scene, values, data)
+    dp = dec["profile"]
+    log(f"  decode in a fresh process ({child_s:.3f} s with start-up): first "
+        f"{dec['first_s']:.4f} s; second {dp['total_s']:.4f} s wall: anchors "
+        f"(GausPcgc) {dp['anchors_s']:.4f} s, context {dp['context_ms']:.3f} "
+        f"ms, chunk mixtures {dp['mixture_ms']:.3f} ms (CUDA events), host "
+        f"coder {dp['coder_s']:.4f} s; rans_decode launches "
+        f"{dec['rans_decode']}; exact: {', '.join(dec['exact'])}")
+    log(f"  decoded eval: tile_blend launches {dec['tile_blend']}, K="
+        f"{dec['eval_k']} D={dec['eval_d']}, ms/view "
+        f"{', '.join(f'{m:.3f}' for m in dec['ms'])}; one decoded frame, "
+        f"kernel vs plain max |diff| {dec['frame_err']:.3e}")
+    if dec["rans_decode"] == 0 or dec["tile_blend"] == 0:
+        raise RuntimeError("the HAC++ decode did not launch the rans decode "
+                           "kernel, or its eval the tile_blend kernel")
+    float_res = pipeline.evaluate(state, cfg, scene.test_cameras, max_k=EVAL_K,
+                                  white_background=True)
+    log(f"  PSNR decoded {dec['psnr']:.4f} dB (fresh process), float "
+        f"{float_res['psnr']:.4f} dB (unquantised attributes, this process): "
+        f"codec_delta_db {float_res['psnr'] - dec['psnr']:+.5f} (not held to "
+        f"a limit: the JAX package's float eval of a HAC++ state does not "
+        f"quantise); size {sizes['total'] / hac_codec.BIT2MB:.4f} MB")
+    return {"tile_blend": fwd, "tile_blend_backward": bwd,
+            "rans_encode": enc_launches, "rans_decode": dec["rans_decode"]}
 
 
 def decode_scene_main(tmp: str, device="cuda") -> int:
-    """--decode-scene: in this fresh process, load the handed-off state and
-    configuration, decode the scene twice (the second with counted
-    launches), check it exactly against what the encoder wrote, evaluate it
-    on the held-out views, check one decoded frame's blend against the
-    plain version and print one JSON line."""
+    """--decode-scene: in this fresh process, load the handed-off family,
+    configuration and state, decode the scene twice (the second with
+    counted launches), check it exactly against what the encoder wrote (for
+    HAC++ each feature chunk too), evaluate it on the held-out views, check
+    one decoded frame's blend against the plain version and print one JSON
+    line."""
     dev = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with open(Path(tmp) / "cfg.json") as f:
-        cfg = hac.HACConfig(**{k: tuple(v) if isinstance(v, list) else v
-                               for k, v in json.load(f).items()})
+        meta = json.load(f)
+    family = registry.get_family(meta["model"])
+    cfg = family.make_config(**{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in meta["cfg"].items()})
+    base = cfg.as_hac() if hasattr(cfg, "as_hac") else cfg
     state = convert.state_from_numpy(
         checkpoint.load_pytree(str(Path(tmp) / "state.npz")), cfg, device=dev)
     net = convert.load_codec_npz(SCENE_CODEC_WEIGHTS, device=dev)
     bs_dir = str(Path(tmp) / "bitstreams")
     t0 = time.perf_counter()
-    hac_codec.conduct_decoding(state, cfg, bs_dir, net)
+    family.conduct_decoding(state, cfg, bs_dir, net)
     first_s = time.perf_counter() - t0
     rans.decode_launches = 0
     prof = {}
-    dec, _ = hac_codec.conduct_decoding(state, cfg, bs_dir, net, profile=prof)
+    dec, _ = family.conduct_decoding(state, cfg, bs_dir, net, profile=prof)
     rans_launches = rans.decode_launches
     want = np.load(Path(tmp) / "expect.npz")
     n = want["feat"].shape[0]
@@ -1392,9 +1570,17 @@ def decode_scene_main(tmp: str, device="cuda") -> int:
            "feat": a["anchor_feat"][:n], "scaling": a["scaling"][:n],
            "offset": a["offset"][:n],
            "hash": dec["nets"].tables.flat().to(torch.int8)}
+    checked = [f"{name} {tuple(t.shape)}" for name, t in got.items()]
     for name, t in got.items():
         if not np.array_equal(t.cpu().numpy(), want[name]):
             raise RuntimeError(f"decoded {name} differs from the encoder's")
+    if hasattr(cfg, "chunk"):
+        feat = got["feat"].cpu().numpy()
+        for cc in range(hacp.N_CHUNKS):
+            cols = slice(cc * cfg.chunk, (cc + 1) * cfg.chunk)
+            if not np.array_equal(feat[:, cols], want["feat"][:, cols]):
+                raise RuntimeError(f"decoded feature chunk {cc} differs")
+            checked.append(f"feat chunk {cc}")
     if int(dec["valid"].sum()) != n:
         raise RuntimeError("the decoded state holds another anchor count")
     with open(Path(tmp) / "cams.pkl", "rb") as f:
@@ -1409,8 +1595,8 @@ def decode_scene_main(tmp: str, device="cuda") -> int:
     ca = hac_render.CameraArrays.from_camera(cams[0], dev)
     bg = torch.ones(3, device=dev)
     with torch.no_grad():
-        vis = hac_render.prefilter_voxel(dec, cfg, ca, rcfg, True)
-        ng, _ = hac.generate_neural_gaussians(dec, cfg, ca.camera_center, vis,
+        vis = hac_render.prefilter_voxel(dec, base, ca, rcfg, True)
+        ng, _ = hac.generate_neural_gaussians(dec, base, ca.camera_center, vis,
                                               decoded=True)
         proj = raster.project(ng.xyz, ng.scaling, ng.rot, ca.viewmatrix, rcfg,
                               ng.valid)
@@ -1426,7 +1612,8 @@ def decode_scene_main(tmp: str, device="cuda") -> int:
     rtol, atol = tile_blend.kernel_tolerance(bg, frame[5])
     err = check_close("decoded frame, kernel vs plain", img,
                       tile_blend.blend_tiles_reference(*frame, **kw), rtol, atol)
-    print(json.dumps({"first_s": first_s, "profile": prof,
+    print(json.dumps({"model": meta["model"], "exact": checked,
+                      "first_s": first_s, "profile": prof,
                       "rans_decode": rans_launches, "tile_blend": blend_launches,
                       "psnr": res["psnr"], "eval_k": res["eval_k"],
                       "eval_d": res["eval_d"],
@@ -1448,9 +1635,9 @@ def main() -> int:
     parser.add_argument("--out", metavar="NPY", default=None,
                         help="with --decode: where to save the decoded points")
     parser.add_argument("--decode-scene", metavar="DIR", default=None,
-                        help="only decode and evaluate the HAC scene handed "
-                        "off in DIR (the scene codec phase runs this in a "
-                        "fresh process)")
+                        help="only decode and evaluate the scene handed off "
+                        "in DIR (the scene codec and hac_plus phases run this "
+                        "in a fresh process)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1720,36 +1907,8 @@ def main() -> int:
             f"backward launches {bwd_launches}")
         if train_launches == 0 or bwd_launches == 0:
             raise RuntimeError("training did not launch both blend kernels")
-        h = tres["history"]
-        for ph in (0, 1, 2):
-            sel = h["phase"] == ph
-            log(f"  phase {ph}: {int(sel.sum())} steps, loss mean "
-                f"{h['loss'][sel].mean():.5f} (first {h['loss'][sel][0]:.5f}, "
-                f"last {h['loss'][sel][-1]:.5f}), train PSNR mean "
-                f"{h['psnr'][sel].mean():.3f} dB, bits per parameter mean "
-                f"{h['bit_per_param'][sel].mean():.4f}")
-        if not np.isfinite(h["loss"]).all():
-            raise RuntimeError("non-finite training loss")
-        p0 = h["loss"][h["phase"] == 0]
-        log(f"  phase 0 loss: first 50 steps {p0[:50].mean():.5f}, last 50 "
-            f"{p0[-50:].mean():.5f}")
-        if not p0[-50:].mean() < p0[:50].mean():
-            raise RuntimeError("the phase-0 loss did not fall")
-        if not (h["bit_per_param"][h["phase"] == 2] > 0).all():
-            raise RuntimeError("bit_per_param is not > 0 in phase 2")
-        for it, info in tres["densify"]:
-            log(f"  densify at step {it}: {info['n_anchors']} anchors "
-                f"(+{info['n_added']} / -{info['n_pruned']}), capacity grown: "
-                f"{info['recompiled']}")
-        if len(tres["densify"]) < 2:
-            raise RuntimeError("fewer than two densifications")
+        training_report(tres)
         rcfg_t = tres["rcfg"]
-        log(f"  raster caps after adapt_caps: " + (", ".join(
-            f"step {it}: D={d} K={k}" for it, d, k in tres["caps"]) or "unchanged")
-            + f"; final D={rcfg_t.max_tiles_per_gaussian} "
-            f"K={rcfg_t.max_gaussians_per_tile}")
-        log(f"  non-finite gradient components over the run: "
-            f"{int(h['nonfinite_grads'].sum())}")
         trained = pipeline.evaluate(tstate, tcfg, scene.test_cameras,
                                     max_k=EVAL_K, white_background=True)
         for name, v in trained["per_view"].items():
@@ -1935,7 +2094,10 @@ def main() -> int:
             f"{int(per_tile_e.max())}, mean {float(per_tile_e.double().mean()):.1f}")
 
     with Phase("scene codec"):
-        scene_codec_phase(dev, scene, tstate, tcfg)
+        hac_sizes = scene_codec_phase(dev, scene, tstate, tcfg)
+
+    with Phase("hac_plus"):
+        hacp_launches = hac_plus_phase(dev, scene, serve_psnr, hac_sizes)
 
     with Phase("reference"):
         # the whole slice on the card against the port's CPU path (plain
@@ -2008,12 +2170,15 @@ def main() -> int:
     with Phase("codec"):
         codec_rows = codec_phase(dev, opts.baseline_rans)
 
+    for row in codec_rows:
+        row["launches_hac_plus"] = hacp_launches[row["name"]]
     log(json.dumps({"kernels": [{
         "name": "tile_blend",
         "route": "cuda",
         "source": "gauspcc_tpu_torch/csrc/tile_blend.cu",
         "replaces": "gauspcc_tpu/render/pallas_blend.py:46",
         "launches": launches,
+        "launches_hac_plus": hacp_launches["tile_blend"],
         "max_abs_err": frame_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2026,6 +2191,7 @@ def main() -> int:
         "source": "gauspcc_tpu_torch/csrc/tile_blend.cu",
         "replaces": "gauspcc_tpu/render/raster.py:264",
         "launches": bwd_launches,
+        "launches_hac_plus": hacp_launches["tile_blend_backward"],
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

@@ -1,9 +1,9 @@
 """Scene-scale soak (own copy of gauspcc_tpu/cli/soak.py:37-130, the
 "textured" kind, and :139-246): clustered coloured Gaussians rendered from
 orbit cameras with the port's rasterizer as ground truth, plus seed points
-for the anchors; `train` trains HAC on it, and `main` runs the whole
-pipeline, train -> estimate -> encode -> decode -> evaluate, and writes
-soak_summary.json.
+for the anchors; `train` trains a family (HAC or HAC++) on it, and `main`
+runs the whole pipeline, train -> estimate -> encode -> decode -> evaluate,
+and writes soak_summary.json.
 
 The numpy RNG calls run in the same order as the JAX package's
 build_scene, so one seed gives the same Gaussians, cameras and seed points
@@ -11,7 +11,8 @@ in both. Not ported (ROADMAP.md Queue 1 item 7): the heartbeat, the scalar
 logger, resume and the divergence abort.
 
     python -m gauspcc_tpu_torch.cli.soak --iters 30000 --out runs/soak_torch \
-        [--pcc_ckpt model/gauspcgc/best_model.npz] [--device cuda]
+        [--model hac|hac_plus] [--pcc_ckpt model/gauspcgc/best_model.npz] \
+        [--device cuda]
 """
 
 from __future__ import annotations
@@ -112,39 +113,44 @@ def compressed_phase_schedule(iters: int) -> Callable[[int], int]:
     return lambda it: 0 if it <= b0 else (1 if it <= b1 else 2)
 
 
-def train(scene: SyntheticScene, iters: int, *, voxel_size: float = 0.01,
-          lmbda: float = 1e-3, white_background: bool = True, seed: int = 0,
-          log=print, log_every: int = 200, device="cuda", model_dir=None,
+def train(scene: SyntheticScene, iters: int, *, model: str = "hac",
+          voxel_size: float = 0.01, lmbda: float = 1e-3,
+          white_background: bool = True, seed: int = 0, log=print,
+          log_every: int = 200, device="cuda", model_dir=None,
           pcc_params=None, pcc_cfg=None, **opt_overrides):
-    """Train HAC at the full HACConfig width on a soak scene, with the
-    soak's OptConfig (update_until at half the run, at most 15,000) and,
-    below 30,000 steps, its compressed phase schedule. `opt_overrides`
-    replace OptConfig fields; `model_dir`, `pcc_params` and `pcc_cfg` go to
-    train_scene (save, encode, decode, evaluate). Returns (state, cfg, opt,
-    results), results as train_scene's."""
-    from gauspcc_tpu_torch.models.hac import model as hac
+    """Train the family `model` at its config's full width on a soak scene,
+    with the soak's OptConfig (update_until at half the run, at most
+    15,000) and, below 30,000 steps, its compressed phase schedule in place
+    of the family's. `opt_overrides` replace OptConfig fields; `model_dir`,
+    `pcc_params` and `pcc_cfg` go to train_scene (save, encode, decode,
+    evaluate). Returns (state, cfg, opt, results), results as
+    train_scene's."""
+    from gauspcc_tpu_torch.models import registry
     from gauspcc_tpu_torch.models.hac import pipeline
     from gauspcc_tpu_torch.models.hac import train as hac_train
 
-    cfg = hac.HACConfig(voxel_size=voxel_size)
+    dev = resolve(device)
+    family = registry.get_family(model)
+    if iters < 30_000:
+        family = dataclasses.replace(
+            family, phase_of_step=compressed_phase_schedule(iters))
+    cfg = family.make_config(voxel_size=voxel_size)
     opt = dataclasses.replace(hac_train.OptConfig(
         iterations=iters, lmbda=lmbda, update_until=min(15_000, iters // 2)),
         **opt_overrides)
-    phase_of_step = (compressed_phase_schedule(iters) if iters < 30_000
-                     else hac_train.phase_of_step)
     state, results = pipeline.train_scene(
         scene, cfg, opt, seed=seed, log_every=log_every,
-        white_background=white_background, phase_of_step=phase_of_step,
-        log=log, device=device, model_dir=model_dir, pcc_params=pcc_params,
-        pcc_cfg=pcc_cfg)
+        white_background=white_background, log=log, device=dev,
+        model_dir=model_dir, pcc_params=pcc_params, pcc_cfg=pcc_cfg,
+        family=family)
     return state, cfg, opt, results
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gauspcc-torch-soak")
-    p.add_argument("--model", default="hac", choices=("hac",),
-                   help="the families HAC++, TC-GS and CAT-3DGS are not "
-                        "ported yet (ROADMAP.md Queue 1 item 7)")
+    p.add_argument("--model", default="hac", choices=("hac", "hac_plus"),
+                   help="TC-GS and CAT-3DGS are not ported yet (ROADMAP.md "
+                        "Queue 1 items 7b, 7c)")
     p.add_argument("--iters", type=int, default=30_000)
     p.add_argument("--hw", type=int, default=512)
     p.add_argument("--gt_gaussians", type=int, default=6000)
@@ -176,9 +182,9 @@ def main(argv=None):
           f"test cams @ {args.hw}x{args.hw}, {scene.points.shape[0]} seeds")
     t0 = time.time()
     _, _, _, results = train(
-        scene, args.iters, voxel_size=args.voxel_size, lmbda=args.lmbda,
-        white_background=white_bg, log_every=args.log_every, device=dev,
-        model_dir=args.out, pcc_params=pcc_params)
+        scene, args.iters, model=args.model, voxel_size=args.voxel_size,
+        lmbda=args.lmbda, white_background=white_bg, log_every=args.log_every,
+        device=dev, model_dir=args.out, pcc_params=pcc_params)
     wall = time.time() - t0
     from gauspcc_tpu_torch.models.hac.pipeline import RESULT_KEYS
 

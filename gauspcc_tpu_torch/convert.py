@@ -1,5 +1,5 @@
-"""Carry a HAC state and GausPcgc codec weights from the JAX package into
-the port.
+"""Carry a HAC or HAC++ state and GausPcgc codec weights from the JAX
+package into the port.
 
 The JAX package saves a pytree as flat "a/b/c" keys
 (gauspcc_tpu/utils/checkpoint.py:17-33, `save_pytree`), e.g.
@@ -20,18 +20,22 @@ import numpy as np
 import torch
 
 from gauspcc_tpu_torch.device import resolve
-from gauspcc_tpu_torch.fields.hashgrid import TABLE_NAMES
 from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.utils.checkpoint import flatten
 
 ANCHOR_FIELDS = ("anchor", "offset", "mask", "anchor_feat", "scaling",
                  "rotation", "opacity")
+# HAC's networks besides its tables
 MLP_NAMES = ("mlp_opacity", "mlp_cov", "mlp_color", "mlp_grid", "mlp_deform")
 
 
-def state_from_numpy(tree: Mapping, cfg: hac.HACConfig,
-                     device="cuda") -> hac.State:
-    """The port's HAC state from a JAX HAC state given as numpy arrays."""
+def state_from_numpy(tree: Mapping, cfg, device="cuda") -> hac.State:
+    """The port's state from a JAX state given as numpy arrays: HAC's for a
+    HACConfig, HAC++'s for a HACPlusConfig (its nets have channel_ctx in
+    place of mlp_deform, and a wider mlp_grid). The networks take every
+    "nets/" key and no other, or it raises."""
+    from gauspcc_tpu_torch.models.hac_plus import model as hacp
+
     dev = resolve(device)
     flat = flatten(tree)
 
@@ -43,18 +47,8 @@ def state_from_numpy(tree: Mapping, cfg: hac.HACConfig,
             raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(shape)}")
         return torch.tensor(arr, device=dev)
 
-    nets = hac.HACNets(cfg)
-    with torch.no_grad():
-        for name in TABLE_NAMES:
-            p = getattr(nets.tables, name)
-            p.copy_(get(f"nets/tables/{name}", p.shape))
-        for name in MLP_NAMES:
-            mlp = getattr(nets, name)
-            for fc_name in ("fc0", "fc1"):
-                fc = getattr(mlp, fc_name)
-                w = get(f"nets/{name}/{fc_name}/w", fc.weight.shape[::-1])
-                fc.weight.copy_(w.T)
-                fc.bias.copy_(get(f"nets/{name}/{fc_name}/b", fc.bias.shape))
+    nets = _fill(hacp.HACPlusNets(cfg) if isinstance(cfg, hacp.HACPlusConfig)
+                 else hac.HACNets(cfg), flat, "nets/")
     return {
         "anchors": {f: get(f"anchors/{f}").to(torch.float32)
                     for f in ANCHOR_FIELDS},
@@ -77,14 +71,20 @@ def codec_params_from_numpy(tree: Mapping, cfg=None, device="cuda"):
     cfg = cfg if cfg is not None else pcgc.NetConfig()
     dev = resolve(device)
     flat = flatten(tree)
-    net = pcgc.GausPcgcNet(cfg)
-    names = dict(net.named_parameters())
-    unused = set(flat) - {_codec_key(n) for n in names}
+    return _fill(pcgc.GausPcgcNet(cfg), flat).to(dev)
+
+
+def _fill(module: torch.nn.Module, flat: Mapping, prefix: str = ""):
+    """`module` with every parameter copied from flat[prefix + its key];
+    a key under `prefix` that the module lacks, or a missing key, raises."""
+    names = dict(module.named_parameters())
+    unused = ({k for k in flat if k.startswith(prefix)}
+              - {prefix + _codec_key(n) for n in names})
     if unused:
         raise KeyError(f"weights the network does not have: {sorted(unused)}")
     with torch.no_grad():
         for name, p in names.items():
-            key = _codec_key(name)
+            key = prefix + _codec_key(name)
             if key not in flat:
                 raise KeyError(f"weights are missing {key}")
             arr = torch.tensor(np.asarray(flat[key], np.float32))
@@ -94,7 +94,7 @@ def codec_params_from_numpy(tree: Mapping, cfg=None, device="cuda"):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{tuple(arr.shape)} vs {tuple(p.shape)}")
             p.copy_(arr)
-    return net.to(dev)
+    return module
 
 
 def _codec_key(param_name: str) -> str:

@@ -9,9 +9,10 @@ values live in int32 and are masked to 16 bits.
 The cumulative sum runs column by column, left to right: a fixed order,
 so the encoder and the decoder compute the same tables on the same
 device, and no scan kernel chooses its own order. The discretized
-Gaussian tables are HAC's attribute models (the native coder evaluates the
-same CDF itself, `ops/coder.encode_gauss`); the mixture tables come with
-HAC++.
+Gaussian tables are HAC's attribute models and the mixture tables HAC++'s
+feature models; the native coder evaluates the same CDFs itself
+(`ops/coder.encode_gauss`), so the coding path reaches only
+`mixture_center`, and the tables are the tests' oracles.
 """
 
 from __future__ import annotations
@@ -55,6 +56,15 @@ def _table(samples, mean, scale):
     return normalize_cdf_int16(cdf.clamp(0.0, 1.0))
 
 
+def _mixture_table(samples, means, scales, probs):
+    acc = torch.zeros_like(samples)
+    for mean, scale, prob in zip(means, scales, probs):
+        scale = torch.clamp_min(scale, 1e-9)
+        acc = acc + prob[:, None] * gaussian_cdf(samples, mean[:, None],
+                                                 scale[:, None])
+    return normalize_cdf_int16(acc.clamp(0.0, 1.0))
+
+
 def gaussian_cdf_table(mean: torch.Tensor, scale: torch.Tensor,
                        q: torch.Tensor, min_value: int,
                        max_value: int) -> torch.Tensor:
@@ -77,3 +87,35 @@ def gaussian_cdf_table_residual(mean: torch.Tensor, scale: torch.Tensor,
     cols = torch.arange(lp, dtype=torch.float32, device=mean.device)
     return _table((offset[:, None] + cols + (rmin - 0.5)) * q[:, None],
                   mean, scale)
+
+
+def gaussian_mixture_cdf_table(means: list, scales: list, probs: list,
+                               q: torch.Tensor, min_value: int,
+                               max_value: int) -> torch.Tensor:
+    """The mixture's table (gauspcc_tpu/core/cdf.py:99): column j of row i
+    holds sum_k probs[k][i] Phi(((min_value + j) - 0.5) q[i]; means[k][i],
+    scales[k][i]), clamped to [0, 1], int16-normalized."""
+    lp = int(max_value) - int(min_value) + 2
+    cols = torch.arange(lp, dtype=torch.float32, device=q.device)
+    samples = (cols + (min_value - 0.5)) * q[:, None]
+    return _mixture_table(samples, means, scales, probs)
+
+
+def mixture_center(means: list, probs: list, q: torch.Tensor) -> torch.Tensor:
+    """round(sum_k probs[k] means[k] / q), the per-element centre of the
+    mixture's residuals; encoder and decoder compute it alike."""
+    m = torch.zeros_like(means[0])
+    for mean, prob in zip(means, probs):
+        m = m + prob * mean
+    return torch.round(m / q)
+
+
+def gaussian_mixture_cdf_table_residual(means: list, scales: list,
+                                        probs: list, q: torch.Tensor,
+                                        rmin: int, rmax: int) -> torch.Tensor:
+    """The mixture's table over residuals around `mixture_center`."""
+    lp = int(rmax) - int(rmin) + 2
+    offset = mixture_center(means, probs, q)
+    cols = torch.arange(lp, dtype=torch.float32, device=q.device)
+    samples = (offset[:, None] + cols + (rmin - 0.5)) * q[:, None]
+    return _mixture_table(samples, means, scales, probs)

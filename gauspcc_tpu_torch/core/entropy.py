@@ -1,10 +1,11 @@
 """Train-time entropy models: differentiable bit estimators (counterpart of
 gauspcc_tpu/core/entropy.py:20-94).
 
-Only what HAC's training objective reaches: `low_bound` with its custom
-gradient, the quantized-Gaussian bits and the binary-size estimate. The
-mixture, Bernoulli and factorized estimators come with HAC++ and CAT.
-All functions return per-element bits; callers sum and normalise.
+What HAC's and HAC++'s training objectives reach: `low_bound` with its
+custom gradient, the quantized-Gaussian bits, the Gaussian-mixture bits and
+the binary-size estimate. The Bernoulli and factorized estimators come with
+TC-GS and CAT. All functions return per-element bits; callers sum and
+normalise.
 """
 
 from __future__ import annotations
@@ -40,22 +41,43 @@ def _normal_cdf(x, mean, scale):
     return 0.5 * torch.special.erfc(-(x - mean) / (scale * math.sqrt(2.0)))
 
 
-def gaussian_bits(x, mean, scale, q=1.0, x_mean=None):
-    """Bits of the quantized-Gaussian likelihood of x. x is first clamped to
-    x_mean +- 15000 q, bounds that carry no gradient."""
-    if USE_CLAMP:
-        if x_mean is None:
-            x_mean = x.mean()
-        lo = (x_mean - CLAMP_STEPS * q).detach()
-        hi = (x_mean + CLAMP_STEPS * q).detach()
-        x = torch.clamp(x, lo, hi)
+def _clamp_window(x, q, x_mean):
+    """x clamped to x_mean +- 15000 q, bounds that carry no gradient."""
+    if not USE_CLAMP:
+        return x
+    if x_mean is None:
+        x_mean = x.mean()
+    lo = (x_mean - CLAMP_STEPS * q).detach()
+    hi = (x_mean + CLAMP_STEPS * q).detach()
+    return torch.clamp(x, lo, hi)
+
+
+def _bin_mass(x, mean, scale, q):
+    """|CDF(x + q/2) - CDF(x - q/2)|, with the JAX package's gradient of |.|
+    at 0 (+1, where torch.abs has 0): deep in the tails both CDFs round to
+    the same float32 and the difference is exactly 0, but its gradient is
+    not."""
     scale = torch.clamp_min(scale, 1e-9)
     diff = (_normal_cdf(x + 0.5 * q, mean, scale)
             - _normal_cdf(x - 0.5 * q, mean, scale))
-    # |diff| with the JAX package's gradient at 0 (+1, where torch.abs has
-    # 0): deep in the tails both CDFs round to the same float32 and the
-    # difference is exactly 0, but its gradient is not
-    likelihood = torch.where(diff >= 0, diff, -diff)
+    return torch.where(diff >= 0, diff, -diff)
+
+
+def gaussian_bits(x, mean, scale, q=1.0, x_mean=None):
+    """Bits of the quantized-Gaussian likelihood of x. x is first clamped to
+    x_mean +- 15000 q."""
+    x = _clamp_window(x, q, x_mean)
+    return -torch.log2(low_bound(_bin_mass(x, mean, scale, q)))
+
+
+def gaussian_mixture_bits(x, means, scales, probs, q=1.0, x_mean=None):
+    """Bits of x under a mixture of quantized Gaussians (HAC++'s feature
+    model): the likelihood is the probability-weighted sum of the
+    components' bin masses. x is first clamped as in gaussian_bits."""
+    x = _clamp_window(x, q, x_mean)
+    likelihood = 0.0
+    for mean, scale, prob in zip(means, scales, probs):
+        likelihood = likelihood + prob * _bin_mass(x, mean, scale, q)
     return -torch.log2(low_bound(likelihood))
 
 

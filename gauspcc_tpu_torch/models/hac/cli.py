@@ -1,17 +1,20 @@
-"""HAC command line (counterpart of gauspcc_tpu/models/hac/cli.py):
-train a scene end to end, then estimate, encode, decode and evaluate it;
-or encode, decode and evaluate a trained model directory again.
+"""The scene command line (counterpart of gauspcc_tpu/models/hac/cli.py):
+train a scene of a family (`--model hac` or `hac_plus`) end to end, then
+encode, decode and evaluate it; or encode, decode and evaluate a trained
+model directory again.
 
   python -m gauspcc_tpu_torch.models.hac.cli train -s <scene_dir> \
-      -m <model_dir> [--voxel_size 0.001 --lmbda 0.004 --iterations 30000 \
-      --pcc_ckpt model/gauspcgc/best_model.npz --device cuda]
+      -m <model_dir> [--model hac_plus --voxel_size 0.001 --lmbda 0.004 \
+      --iterations 30000 --pcc_ckpt model/gauspcgc/best_model.npz \
+      --device cuda]
   python -m gauspcc_tpu_torch.models.hac.cli eval -m <model_dir> \
       [-s <scene_dir>] [--device cuda]
 
 The anchors' codec comes from `--pcc_ckpt`, a GausPcgc `.npz` of the JAX
 package's keys (`convert.load_codec_npz`). cfg.json in the model directory
-records the configuration for `eval`. Runs on the card unless `--device
-cpu` is given.
+records the family and its configuration for `eval`. HAC++ takes the tiny
+channel context on a Blender scene, as the JAX CLI does. Runs on the card
+unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -36,20 +39,14 @@ def _load_pcc(args, device):
     return convert.load_codec_npz(args.pcc_ckpt, cfg, device=device), cfg
 
 
-def _check_family(args):
-    if args.model != "hac":
-        raise NotImplementedError(f"--model {args.model}: only HAC is ported "
-                                  f"({_LATER})")
-
-
 def cmd_train(args):
     from gauspcc_tpu_torch.data.scene import Scene
     from gauspcc_tpu_torch.device import resolve
-    from gauspcc_tpu_torch.models.hac import model as hac
+    from gauspcc_tpu_torch.models import registry
     from gauspcc_tpu_torch.models.hac import pipeline
     from gauspcc_tpu_torch.models.hac import train as hac_train
 
-    _check_family(args)
+    family = registry.get_family(args.model)
     for flag, on in (("--gui", args.gui),
                      ("--start_checkpoint", args.start_checkpoint),
                      ("--checkpoint_every", args.checkpoint_every)):
@@ -57,7 +54,7 @@ def cmd_train(args):
             raise NotImplementedError(f"{flag} is not ported yet ({_LATER})")
     dev = resolve(args.device)
     pcc_params, pcc_cfg = _load_pcc(args, dev)
-    cfg = hac.HACConfig(
+    kw = dict(
         feat_dim=args.feat_dim, n_offsets=args.n_offsets,
         voxel_size=args.voxel_size, update_depth=args.update_depth,
         update_init_factor=args.update_init_factor,
@@ -66,6 +63,9 @@ def cmd_train(args):
         n_features_per_level=args.n_features)
     scene = Scene(args.source_path, eval_split=args.eval, images_dir=args.images,
                   white_background=args.white_background)
+    if args.model == "hac_plus":
+        kw["tiny_ctx"] = scene.is_blender
+    cfg = family.make_config(**kw)
     opt = hac_train.OptConfig(iterations=args.iterations, lmbda=args.lmbda)
     os.makedirs(args.model_path, exist_ok=True)
     with open(os.path.join(args.model_path, "cfg.json"), "w") as f:
@@ -74,40 +74,41 @@ def cmd_train(args):
                    "source_path": args.source_path}, f, indent=2)
     pipeline.train_scene(scene, cfg, opt, white_background=args.white_background,
                          device=dev, model_dir=args.model_path,
-                         pcc_params=pcc_params, pcc_cfg=pcc_cfg)
+                         pcc_params=pcc_params, pcc_cfg=pcc_cfg, family=family)
 
 
 def cmd_eval(args):
     from gauspcc_tpu_torch import convert
     from gauspcc_tpu_torch.data.scene import Scene
     from gauspcc_tpu_torch.device import resolve
+    from gauspcc_tpu_torch.models import registry
     from gauspcc_tpu_torch.models.hac import codec as hac_codec
-    from gauspcc_tpu_torch.models.hac import model as hac
     from gauspcc_tpu_torch.models.hac import pipeline
     from gauspcc_tpu_torch.utils import checkpoint
 
-    _check_family(args)
     dev = resolve(args.device)
     pcc_params, pcc_cfg = _load_pcc(args, dev)
     with open(os.path.join(args.model_path, "cfg.json")) as f:
         meta = json.load(f)
+    # the family is the one the model was trained as, whatever --model says
+    family = registry.get_family(meta.get("model", "hac"))
     hac_kw = dict(meta["hac"])
     for k in ("resolutions_3d", "resolutions_2d"):
         hac_kw[k] = tuple(hac_kw[k])
-    cfg = hac.HACConfig(**hac_kw)
+    cfg = family.make_config(**hac_kw)
     scene = Scene(args.source_path or meta["source_path"], eval_split=True,
                   images_dir=args.images)
     state = convert.state_from_numpy(checkpoint.load_pytree(
         os.path.join(args.model_path, "model.npz")), cfg, device=dev)
     bs_dir = os.path.join(args.model_path, "bitstreams")
-    sizes, enc_log = hac_codec.conduct_encoding(state, cfg, bs_dir, pcc_params,
-                                                pcc_cfg)
+    sizes, enc_log = family.conduct_encoding(state, cfg, bs_dir, pcc_params,
+                                             pcc_cfg)
     print(enc_log)
-    dec_state, dec_log = hac_codec.conduct_decoding(state, cfg, bs_dir,
-                                                    pcc_params, pcc_cfg)
+    dec_state, dec_log = family.conduct_decoding(state, cfg, bs_dir,
+                                                 pcc_params, pcc_cfg)
     print(dec_log)
     results = pipeline.evaluate(dec_state, cfg, scene.test_cameras,
-                                decoded=True, auto_k=True)
+                                decoded=True)
     results = {k: results[k] for k in pipeline.RESULT_KEYS if k in results}
     results["size_bits"] = sizes
     results["size_mb"] = sizes["total"] / hac_codec.BIT2MB

@@ -167,19 +167,74 @@ def _positions(anchor_int: np.ndarray, cfg: hac.HACConfig,
     return torch.from_numpy(anchor_int.astype(np.float32) * cfg.voxel_size).to(dev)
 
 
-def _padded_context(state, cfg: hac.HACConfig, pos: torch.Tensor, lo: int,
-                    hi: int, clock: _DeviceClock) -> dict:
-    """The context of anchors lo..hi, computed on a batch padded to BATCH."""
+def _padded_context(state, cfg, pos: torch.Tensor, lo: int, hi: int,
+                    clock: _DeviceClock, context=None) -> dict:
+    """The context of anchors lo..hi, computed on a batch padded to BATCH
+    by `context` (HAC's `_batch_context` unless a family gives its own)."""
     batch = torch.zeros((BATCH, 3), dtype=torch.float32, device=pos.device)
     batch[: hi - lo] = pos[lo:hi]
     with clock:
-        ctx = _batch_context(state, cfg, batch)
+        ctx = (context or _batch_context)(state, cfg, batch)
     return {k: v[: hi - lo] for k, v in ctx.items()}
+
+
+def _pad(x: torch.Tensor, shape) -> torch.Tensor:
+    """x in the first rows of float32 zeros of `shape`, on x's device."""
+    out = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    out[: x.shape[0]] = x
+    return out
 
 
 def _offset_mask(mask: torch.Tensor) -> torch.Tensor:
     """[b, K, 1] {0, 1} masks -> bool [b * 3K], one per offset coordinate."""
     return torch.repeat_interleave(mask, 3, dim=-1).reshape(-1) > 0
+
+
+def _encode_scaling_offsets(data: dict, ctx: dict, lo: int, hi: int,
+                            means: dict, out_dir: str, s: int, k: int,
+                            bits: dict, got: dict | None) -> None:
+    """Code batch s's scalings and (mask-on) offsets under the context's
+    Gaussians into scaling_<s>.b and offsets_<s>.b, adding their bits to
+    `bits` and, with `got`, what the decoder will give to its lists."""
+    b = hi - lo
+    args = (ste_multistep(data["scaling"][lo:hi], ctx["q_scaling"],
+                          means["scaling"]),
+            ctx["mean_scaling"], ctx["scale_scaling"],
+            ctx["q_scaling"].expand(b, 6))
+    bits["scaling"] += ec.encode_gaussian(
+        *args, os.path.join(out_dir, f"scaling_{s}.b"))
+    offs = ste_multistep(data["offset"][lo:hi], ctx["q_offsets"][:, None, :],
+                         means["offset"]).reshape(-1)
+    msk = _offset_mask(data["mask"][lo:hi])
+    off_args = (offs[msk], ctx["mean_offsets"].reshape(-1)[msk],
+                ctx["scale_offsets"].reshape(-1)[msk],
+                ctx["q_offsets"].expand(b, 3 * k).reshape(-1)[msk])
+    bits["offsets"] += ec.encode_gaussian(
+        *off_args, os.path.join(out_dir, f"offsets_{s}.b"))
+    if got is not None:
+        got["scaling"].append(ec.gaussian_values(*args).reshape(b, 6))
+        dec_off = torch.zeros(b * 3 * k, dtype=torch.float32, device=offs.device)
+        dec_off[msk] = ec.gaussian_values(*off_args)
+        got["offset"].append(dec_off.reshape(b, k, 3))
+
+
+def _decode_scaling_offsets(ctx: dict, masks01: torch.Tensor, out_dir: str,
+                            s: int, k: int):
+    """Inverse of _encode_scaling_offsets for one batch: (scaling [b, 6],
+    offsets [b, K, 3], 0 where masked off)."""
+    b = masks01.shape[0]
+    scal = ec.decode_gaussian(
+        ctx["mean_scaling"], ctx["scale_scaling"], ctx["q_scaling"].expand(b, 6),
+        os.path.join(out_dir, f"scaling_{s}.b")).reshape(b, 6)
+    msk = _offset_mask(masks01)
+    dec_off = torch.zeros(b * 3 * k, dtype=torch.float32, device=masks01.device)
+    if bool(msk.any()):
+        dec_off[msk] = ec.decode_gaussian(
+            ctx["mean_offsets"].reshape(-1)[msk],
+            ctx["scale_offsets"].reshape(-1)[msk],
+            ctx["q_offsets"].expand(b, 3 * k).reshape(-1)[msk],
+            os.path.join(out_dir, f"offsets_{s}.b"))
+    return scal, dec_off.reshape(b, k, 3)
 
 
 def conduct_encoding(state, cfg: hac.HACConfig, out_dir: str, pcc_params,
@@ -217,34 +272,15 @@ def conduct_encoding(state, cfg: hac.HACConfig, out_dir: str, pcc_params,
             lo, hi = s * BATCH, min((s + 1) * BATCH, n)
             b = hi - lo
             ctx = _padded_context(state, cfg, pos, lo, hi, clock)
-            parts = (
-                ("feat", ste_multistep(data["feat"][lo:hi], ctx["q_feat"],
-                                       means["feat"]),
-                 ctx["mean"], ctx["scale"], ctx["q_feat"].expand(b, fd)),
-                ("scaling", ste_multistep(data["scaling"][lo:hi], ctx["q_scaling"],
-                                          means["scaling"]),
-                 ctx["mean_scaling"], ctx["scale_scaling"],
-                 ctx["q_scaling"].expand(b, 6)),
-            )
-            for name, x, mean, scale, q in parts:
-                bits[name] += ec.encode_gaussian(
-                    x, mean, scale, q, os.path.join(out_dir, f"{name}_{s}.b"))
-                if values is not None:
-                    got[name].append(ec.gaussian_values(x, mean, scale, q)
-                                     .reshape(b, -1))
-            offs = ste_multistep(data["offset"][lo:hi],
-                                 ctx["q_offsets"][:, None, :],
-                                 means["offset"]).reshape(-1)
-            msk = _offset_mask(data["mask"][lo:hi])
-            off_args = (offs[msk], ctx["mean_offsets"].reshape(-1)[msk],
-                        ctx["scale_offsets"].reshape(-1)[msk],
-                        ctx["q_offsets"].expand(b, 3 * k).reshape(-1)[msk])
-            bits["offsets"] += ec.encode_gaussian(
-                *off_args, os.path.join(out_dir, f"offsets_{s}.b"))
+            args = (ste_multistep(data["feat"][lo:hi], ctx["q_feat"],
+                                  means["feat"]),
+                    ctx["mean"], ctx["scale"], ctx["q_feat"].expand(b, fd))
+            bits["feat"] += ec.encode_gaussian(
+                *args, os.path.join(out_dir, f"feat_{s}.b"))
             if values is not None:
-                dec_off = torch.zeros(b * 3 * k, dtype=torch.float32, device=dev)
-                dec_off[msk] = ec.gaussian_values(*off_args)
-                got["offset"].append(dec_off.reshape(b, k, 3))
+                got["feat"].append(ec.gaussian_values(*args).reshape(b, fd))
+            _encode_scaling_offsets(data, ctx, lo, hi, means, out_dir, s, k,
+                                    bits, got if values is not None else None)
 
         flat = hac.encoding_params_flat(state)
         bit_hash = ec.encode_binary((flat.reshape(-1) + 1.0) / 2.0,
@@ -276,6 +312,58 @@ def conduct_encoding(state, cfg: hac.HACConfig, out_dir: str, pcc_params,
     return sizes, log
 
 
+def _decoded_skeleton(state, cfg, out_dir: str, pcc_params, pcc_cfg, n: int):
+    """The decoder's first steps, shared by the families: the hash tables
+    (the context's source), then the masks, then the anchors, into a
+    decoded state of zero attributes on the device of `state`, whose
+    networks it copies with the decoded tables. Returns (the state, the
+    coded positions [n, 3], the masks [n, K, 1], the anchors' seconds)."""
+    dev = _device(state)
+    k = cfg.n_offsets
+    spec = cfg.grid_spec
+    n_hash = spec.xyz.n_rows * spec.xyz.n_features + 3 * (
+        spec.plane.n_rows * spec.plane.n_features)
+    flat01 = ec.decode_binary(n_hash, os.path.join(out_dir, "hash.b"), dev)
+    tables = hashgrid.unflatten_tables(
+        spec, (flat01 * 2.0 - 1.0).reshape(-1, cfg.n_features_per_level))
+    masks01 = ec.decode_binary(n * k, os.path.join(out_dir, "masks.b"),
+                               dev).reshape(n, k, 1)
+
+    t0 = time.perf_counter()
+    dec = pcc.decompress_point_cloud(os.path.join(out_dir, "xyz_pcc.bin"),
+                                     pcc_params, config=pcc_cfg, device=dev)
+    _sync(dev)
+    anchors_s = time.perf_counter() - t0
+    anchor_int = dec["point_cloud"].astype(np.int64)
+    anchor_int = anchor_int[sparse.morton_order_np(anchor_int)]
+    if anchor_int.shape[0] != n:
+        raise ValueError(f"decoded {anchor_int.shape[0]} anchors, the "
+                         f"stream holds {n}")
+    pos = _positions(anchor_int, cfg, dev)
+
+    nets = copy.deepcopy(state["nets"])
+    nets.tables = tables
+    cap = hac.bucket_capacity(n)
+    rotation = torch.zeros((cap, 4), dtype=torch.float32, device=dev)
+    rotation[:n, 0] = 1.0
+    dec_state = {
+        "anchors": {
+            "anchor": _pad(pos, (cap, 3)),
+            "offset": torch.zeros((cap, k, 3), device=dev),
+            "mask": _pad(masks01, (cap, k, 1)),
+            "anchor_feat": torch.zeros((cap, cfg.feat_dim), device=dev),
+            "scaling": torch.zeros((cap, 6), device=dev),
+            "rotation": rotation,
+            "opacity": torch.zeros((cap, 1), device=dev),
+        },
+        "valid": torch.arange(cap, device=dev) < n,
+        "nets": nets,
+        "x_bound_min": state["x_bound_min"],
+        "x_bound_max": state["x_bound_max"],
+    }
+    return dec_state, pos, masks01, anchors_s
+
+
 def conduct_decoding(state, cfg: hac.HACConfig, out_dir: str, pcc_params,
                      pcc_cfg=pcc_model.NetConfig(),
                      profile: dict | None = None):
@@ -292,55 +380,9 @@ def conduct_decoding(state, cfg: hac.HACConfig, out_dir: str, pcc_params,
     n, k, fd = meta["n_anchors"], cfg.n_offsets, cfg.feat_dim
     clock = _DeviceClock(dev)
     with torch.no_grad(), pcc._exact_gemms():
-        # the hash tables first (the context's source), then the masks,
-        # then the anchors
-        spec = cfg.grid_spec
-        n_hash = spec.xyz.n_rows * spec.xyz.n_features + 3 * (
-            spec.plane.n_rows * spec.plane.n_features)
-        flat01 = ec.decode_binary(n_hash, os.path.join(out_dir, "hash.b"), dev)
-        tables = hashgrid.unflatten_tables(
-            spec, (flat01 * 2.0 - 1.0).reshape(-1, cfg.n_features_per_level))
-        masks01 = ec.decode_binary(n * k, os.path.join(out_dir, "masks.b"),
-                                   dev).reshape(n, k, 1)
-
-        t0 = time.perf_counter()
-        dec = pcc.decompress_point_cloud(os.path.join(out_dir, "xyz_pcc.bin"),
-                                         pcc_params, config=pcc_cfg, device=dev)
-        _sync(dev)
-        anchors_s = time.perf_counter() - t0
-        anchor_int = dec["point_cloud"].astype(np.int64)
-        anchor_int = anchor_int[sparse.morton_order_np(anchor_int)]
-        if anchor_int.shape[0] != n:
-            raise ValueError(f"decoded {anchor_int.shape[0]} anchors, the "
-                             f"stream holds {n}")
-        pos = _positions(anchor_int, cfg, dev)
-
-        nets = copy.deepcopy(state["nets"])
-        nets.tables = tables
-        cap = hac.bucket_capacity(n)
-
-        def pad(x: torch.Tensor, shape, fill=0.0) -> torch.Tensor:
-            out = torch.full(shape, fill, dtype=torch.float32, device=dev)
-            out[: x.shape[0]] = x
-            return out
-
-        rotation = torch.zeros((cap, 4), dtype=torch.float32, device=dev)
-        rotation[:n, 0] = 1.0
-        dec_state = {
-            "anchors": {
-                "anchor": pad(pos, (cap, 3)),
-                "offset": torch.zeros((cap, k, 3), device=dev),
-                "mask": pad(masks01, (cap, k, 1)),
-                "anchor_feat": torch.zeros((cap, fd), device=dev),
-                "scaling": torch.zeros((cap, 6), device=dev),
-                "rotation": rotation,
-                "opacity": torch.zeros((cap, 1), device=dev),
-            },
-            "valid": torch.arange(cap, device=dev) < n,
-            "nets": nets,
-            "x_bound_min": state["x_bound_min"],
-            "x_bound_max": state["x_bound_max"],
-        }
+        dec_state, pos, masks01, anchors_s = _decoded_skeleton(
+            state, cfg, out_dir, pcc_params, pcc_cfg, n)
+        cap = dec_state["valid"].shape[0]
 
         feats, scalings, offsets = [], [], []
         for s in range((n + BATCH - 1) // BATCH):
@@ -350,25 +392,16 @@ def conduct_decoding(state, cfg: hac.HACConfig, out_dir: str, pcc_params,
             feats.append(ec.decode_gaussian(
                 ctx["mean"], ctx["scale"], ctx["q_feat"].expand(b, fd),
                 os.path.join(out_dir, f"feat_{s}.b")).reshape(b, fd))
-            scalings.append(ec.decode_gaussian(
-                ctx["mean_scaling"], ctx["scale_scaling"],
-                ctx["q_scaling"].expand(b, 6),
-                os.path.join(out_dir, f"scaling_{s}.b")).reshape(b, 6))
-            msk = _offset_mask(masks01[lo:hi])
-            dec_off = torch.zeros(b * 3 * k, dtype=torch.float32, device=dev)
-            if bool(msk.any()):
-                dec_off[msk] = ec.decode_gaussian(
-                    ctx["mean_offsets"].reshape(-1)[msk],
-                    ctx["scale_offsets"].reshape(-1)[msk],
-                    ctx["q_offsets"].expand(b, 3 * k).reshape(-1)[msk],
-                    os.path.join(out_dir, f"offsets_{s}.b"))
-            offsets.append(dec_off.reshape(b, k, 3))
+            scal, off = _decode_scaling_offsets(ctx, masks01[lo:hi], out_dir,
+                                                s, k)
+            scalings.append(scal)
+            offsets.append(off)
 
         a = dec_state["anchors"]
         if n:
-            a["anchor_feat"] = pad(torch.cat(feats), (cap, fd))
-            a["scaling"] = pad(torch.cat(scalings), (cap, 6))
-            a["offset"] = pad(torch.cat(offsets), (cap, k, 3))
+            a["anchor_feat"] = _pad(torch.cat(feats), (cap, fd))
+            a["scaling"] = _pad(torch.cat(scalings), (cap, 6))
+            a["offset"] = _pad(torch.cat(offsets), (cap, k, 3))
     _sync(dev)
     dec_time = time.perf_counter() - t_start
     if profile is not None:

@@ -121,9 +121,10 @@ def _inverse_sigmoid(x: float) -> float:
 
 
 def init_state(cfg: HACConfig, points: np.ndarray, rng: np.random.Generator,
-               device="cuda") -> State:
+               device="cuda", nets: nn.Module | None = None) -> State:
     """Seeded state from a voxelized seed cloud (create_from_pcd), with the
-    shapes and fills of the JAX package's init_state."""
+    shapes and fills of the JAX package's init_state; `nets` replaces HAC's
+    seeded networks (another family's, HAC++)."""
     dev = resolve(device)
     n = points.shape[0]
     cap = bucket_capacity(n)
@@ -153,7 +154,8 @@ def init_state(cfg: HACConfig, points: np.ndarray, rng: np.random.Generator,
     return {
         "anchors": anchors,
         "valid": valid,
-        "nets": HACNets(cfg).init_seeded(rng).to(dev),
+        "nets": (nets if nets is not None
+                 else HACNets(cfg).init_seeded(rng)).to(dev),
         "x_bound_min": full((1, 3), 0.0),
         "x_bound_max": full((1, 3), 1.0),
     }
@@ -227,7 +229,8 @@ def encoding_params_flat(state: State, binarize: bool = True) -> torch.Tensor:
 
 def mlp_size_bits(state: State, digit: int = 32) -> int:
     """The networks' size in the scene's total: every `mlp*` net but the
-    deform one, `digit` bits a parameter."""
+    deform one, `digit` bits a parameter (HAC++'s channel_ctx is not
+    counted, as in the JAX package)."""
     total = sum(p.numel() for name, net in state["nets"].named_children()
                 if name.startswith("mlp") and "deform" not in name
                 for p in net.parameters())
@@ -304,7 +307,10 @@ def generate_neural_gaussians(state: State, cfg: HACConfig,
 
     visible_mask: [cap] bool from the prefilter, combined with validity.
     Eval (not `training`): unless `decoded`, the attributes are STE-quantised
-    through the learned context exactly as the encoder will quantise them.
+    through the learned context exactly as the encoder will quantise them,
+    when the state's mlp_grid has HAC's width (`cfg.grid_out_dim`); another
+    family's state (HAC++'s wider mlp_grid) renders its float attributes,
+    as in the JAX package (model.py:343-349).
     Training, by `phase`, the schedule stage the caller derives from the
     step: 0 no quantization proxy; 1 base-Q uniform noise; 2 context-adaptive
     noise and the rate estimate over the visible, mask-on anchors. `noise`
@@ -322,7 +328,10 @@ def generate_neural_gaussians(state: State, cfg: HACConfig,
     grid_scaling = get_scaling(state, decoded)
     binary_mask = get_mask(state, decoded)  # [cap, K, 1]
     rate = None
-    if not training and not decoded:
+    # HAC++ (and the later families) reuse this scaffold with a context of
+    # their own; only HAC's mlp_grid width gives HAC's heads
+    has_hac_ctx = nets.mlp_grid.fc1.out_features == cfg.grid_out_dim
+    if not training and not decoded and has_hac_ctx:
         ctx = grid_mlp_split(state, cfg, calc_interp_feat(state, cfg, anchor))
         feat_mean, scaling_mean, offset_mean = _live_means(state, cfg)
         feat = ste_multistep(feat, ctx["q_feat"], feat_mean)

@@ -1,11 +1,14 @@
-"""HAC scene pipeline: train a scene, then estimate, encode, decode and
-evaluate it, rendering the held-out views and scoring them against ground
-truth (counterpart of gauspcc_tpu/models/hac/pipeline.py: _raster_cfg :34,
-select_eval_d :75, select_eval_k :94, adapt_caps :121, train_scene :150
-with its codec tail :365-405, render_sets :414, evaluate :447).
+"""The scene pipeline of every family: train a scene, then estimate (HAC
+only), encode, decode and evaluate it, rendering the held-out views and
+scoring them against ground truth (counterpart of
+gauspcc_tpu/models/hac/pipeline.py: _raster_cfg :34, select_eval_d :75,
+select_eval_k :94, adapt_caps :121, train_scene :150 with its codec tail
+:365-405, render_sets :414, evaluate :447). The family
+(`models/registry.py`) gives the state, the objective, the schedule and
+the codec; every render goes through HAC's scaffold (`cfg.as_hac()`).
 
-LPIPS is not computed (no VGG weights are available), and no PNG is
-written: the renders come back as tensors. `train_scene` has no resume
+LPIPS is not computed and no PNG is written (ROADMAP.md Queue 1 item 7g):
+the renders come back as tensors. `train_scene` has no resume
 checkpoint, GUI, heartbeat or divergence canary (ROADMAP.md Queue 1 item
 7).
 """
@@ -41,12 +44,18 @@ def _device(state) -> torch.device:
     return state["anchors"]["anchor"].device
 
 
+def _base(cfg) -> hac.HACConfig:
+    """A family's config as HAC's, for the renders of the shared scaffold."""
+    return cfg.as_hac() if hasattr(cfg, "as_hac") else cfg
+
+
 @torch.no_grad()
 def select_eval_d(state, cfg: hac.HACConfig, cameras, decoded: bool = False,
                   cap: int = 128) -> int:
     """Smallest power-of-two D (from 4, at most `cap`) that covers the
     largest tile footprint over all views: below the cap it renders exactly
     as an unbounded D, and it only shrinks the binning sort."""
+    cfg = _base(cfg)
     worst = 0
     for cam in cameras:
         rcfg = _raster_cfg(cam)
@@ -70,6 +79,7 @@ def select_eval_k(state, cfg: hac.HACConfig, cam, decoded: bool = False,
     """Smallest per-tile cap K whose render matches the 2K render to at
     least tol_db PSNR, doubling from start_k (the reference blends
     unbounded lists; the far tail sits behind ever smaller transmittance)."""
+    cfg = _base(cfg)
     dev = _device(state)
     ca = hac_render.CameraArrays.from_camera(cam, dev)
     bg = torch.zeros(3, device=dev)
@@ -93,6 +103,7 @@ def adapt_caps(state, cfg: hac.HACConfig, rc: raster.RasterConfig, cam,
     double D when over 5% of the visible Gaussians overflow it, K when over
     2% of the occupied tiles do (training against an over-truncated forward
     collapsed earlier soaks). `cam`: CameraArrays. Returns (rc, grew)."""
+    cfg = _base(cfg)
     visible = hac_render.prefilter_voxel(state, cfg, cam, rc)
     ng, _ = hac.generate_neural_gaussians(state, cfg, cam.camera_center, visible)
     sat = raster.tile_saturation(ng.xyz, ng.scaling, ng.rot, cam.viewmatrix,
@@ -116,13 +127,15 @@ def adapt_caps(state, cfg: hac.HACConfig, rc: raster.RasterConfig, cam,
 CAP_ADAPT_EVERY = 500  # steps between checks of the raster caps
 
 
-def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
+def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
                 seed: int = 0, log_every: int = 200,
                 white_background: bool = False,
-                phase_of_step: Callable[[int], int] = hac_train.phase_of_step,
+                phase_of_step: Callable[[int], int] | None = None,
                 log=print, device="cuda", model_dir: str | None = None,
-                pcc_params=None, pcc_cfg=None, eval_at_end: bool = True):
-    """Train one scene; returns (state, results).
+                pcc_params=None, pcc_cfg=None, eval_at_end: bool = True,
+                family=None):
+    """Train one scene of `family` (a `registry.Family`, HAC's by default;
+    `cfg` is its config type); returns (state, results).
 
     The loop of the JAX package's train_scene: cameras in the order of
     rng.permutation, the raster caps adapted every CAP_ADAPT_EVERY steps,
@@ -131,8 +144,10 @@ def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
     the JAX package's, the anchors are kept in the codec's order from the
     start and after each densification (`train.sort_anchors`), so the
     decoded scene renders as the trained one did.
-    `phase_of_step` maps a step to its schedule stage (a compressed one for
-    short runs, cli/soak.py). results: "history" (per step: step, phase,
+    `phase_of_step` maps a step to its schedule stage, the family's unless
+    given (a compressed one for short runs, cli/soak.py); on entering phase
+    2 the family's `extra_init` runs, and its `grad_mask` on every step's
+    gradients. results: "history" (per step: step, phase,
     loss, l1, psnr, bit_per_param, non-finite gradients, copied to the host
     once at the end), "densify" (per densification: step and adjust_anchor's
     info), "caps" (per cap change: step, D, K), "rcfg", "opt_state",
@@ -140,14 +155,20 @@ def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
 
     With `model_dir` the trained state is saved there as model.npz (the
     JAX package's keys); with `pcc_params` (a GausPcgc network, `pcc_cfg`
-    its NetConfig) and `eval_at_end` the scene is then estimated, encoded
-    into model_dir/bitstreams, decoded, and both the decoded and the float
-    state are evaluated on the test views (the first two training views
-    when there are none). results then also has the decoded state's
+    its NetConfig) and `eval_at_end` the scene is then estimated (HAC
+    only), encoded into model_dir/bitstreams by the family's codec,
+    decoded, and both the decoded and the float state are evaluated on the
+    test views (the first two training views when there are none). results then also has the decoded state's
     evaluation ("psnr", "ssim", "eval_k", "eval_d", "fps", "per_view"),
     "psnr_float", "codec_delta_db" (float minus decoded), "size_bits" and
     "size_mb", which results.json in model_dir holds."""
     dev = resolve(device)
+    if family is None:
+        from gauspcc_tpu_torch.models import registry
+
+        family = registry.get_family("hac")
+    if phase_of_step is None:
+        phase_of_step = family.phase_of_step
     optimizer = hac_train.make_optimizer(opt, scene.cameras_extent)
     cams = scene.train_cameras
     rcfg = _raster_cfg(cams[0])
@@ -155,7 +176,7 @@ def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
                   for c in cams]
 
     points = hac.voxelize_points(scene.points, cfg.voxel_size, seed)
-    state = hac.update_anchor_bound(hac.init_state(
+    state = hac.update_anchor_bound(family.init_state(
         cfg, points, np.random.default_rng(seed), device=dev))
     log(f"anchors at init: {points.shape[0]}")
     params, rest = hac.split_state(state)
@@ -169,8 +190,9 @@ def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
     order = rng.permutation(len(cam_arrays)).tolist()
 
     def mk_step(rc):
-        return hac_train.make_train_step(cfg, rc, optimizer, opt,
-                                         white_background=white_background)
+        return hac_train.make_train_step(
+            cfg, rc, optimizer, opt, loss_fn=family.training_loss,
+            grad_mask=family.grad_mask, white_background=white_background)
 
     step_fn = mk_step(rcfg)
     history, densify, caps = [], [], []
@@ -189,9 +211,11 @@ def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
         phase = phase_of_step(it)
         if phase >= 2 and phase_of_step(it - 1) < 2:
             # refit the context's bounding box to the densified anchors
-            # before the rate phase
-            params, rest = hac.split_state(hac.update_anchor_bound(
-                hac.merge_state(params, rest)))
+            # before the rate phase, and the family's own set-up
+            state = hac.update_anchor_bound(hac.merge_state(params, rest))
+            if family.extra_init is not None:
+                state = family.extra_init(state, cfg)
+            params, rest = hac.split_state(state)
         params, opt_state, stats, metrics = step_fn(
             params, rest, opt_state, stats, cam, phase=phase, generator=gen)
         history.append(torch.stack([
@@ -231,7 +255,7 @@ def train_scene(scene, cfg: hac.HACConfig, opt: hac_train.OptConfig, *,
         checkpoint.save_pytree(os.path.join(model_dir, "model.npz"), state)
         if eval_at_end and pcc_params is not None:
             results.update(_code_and_evaluate(
-                state, cfg, scene, model_dir, pcc_params, pcc_cfg,
+                state, cfg, family, scene, model_dir, pcc_params, pcc_cfg,
                 white_background, log))
     return state, results
 
@@ -240,25 +264,25 @@ RESULT_KEYS = ("psnr", "ssim", "eval_k", "eval_d", "fps", "per_view",
                "psnr_float", "codec_delta_db", "size_bits", "size_mb")
 
 
-def _code_and_evaluate(state, cfg, scene, model_dir, pcc_params, pcc_cfg,
-                       white_background, log) -> dict:
-    """train_scene's tail: estimate, encode, decode, evaluate the decoded
-    and the float state, write results.json."""
+def _code_and_evaluate(state, cfg, family, scene, model_dir, pcc_params,
+                       pcc_cfg, white_background, log) -> dict:
+    """train_scene's tail: estimate (HAC only), encode, decode, evaluate the
+    decoded and the float state, write results.json."""
     pcc_cfg = pcc_cfg if pcc_cfg is not None else pcc_model.NetConfig()
-    _, est_log = hac_codec.estimate_final_bits(state, cfg)
-    log(est_log)
+    if family.name == "hac":
+        _, est_log = hac_codec.estimate_final_bits(state, cfg)
+        log(est_log)
     bs_dir = os.path.join(model_dir, "bitstreams")
-    sizes, enc_log = hac_codec.conduct_encoding(state, cfg, bs_dir, pcc_params,
-                                                pcc_cfg)
+    sizes, enc_log = family.conduct_encoding(state, cfg, bs_dir, pcc_params,
+                                             pcc_cfg)
     log(enc_log)
-    dec_state, dec_log = hac_codec.conduct_decoding(state, cfg, bs_dir,
-                                                    pcc_params, pcc_cfg)
+    dec_state, dec_log = family.conduct_decoding(state, cfg, bs_dir,
+                                                 pcc_params, pcc_cfg)
     log(dec_log)
     cams = scene.test_cameras or scene.train_cameras[:2]
     results = evaluate(dec_state, cfg, cams, white_background=white_background,
-                       decoded=True, auto_k=True)
-    float_res = evaluate(state, cfg, cams, white_background=white_background,
-                         auto_k=True)
+                       decoded=True)
+    float_res = evaluate(state, cfg, cams, white_background=white_background)
     results["psnr_float"] = float_res["psnr"]
     if results["psnr"] is not None and float_res["psnr"] is not None:
         results["codec_delta_db"] = float_res["psnr"] - results["psnr"]
@@ -305,6 +329,7 @@ def render_sets(state, cfg: hac.HACConfig, cameras,
 
     Each shape bucket gets one untimed warm-up render first, so the times
     are steady-state renders."""
+    cfg = _base(cfg)
     dev = _device(state)
     bg = torch.ones(3, device=dev) if white_background else torch.zeros(3, device=dev)
     renders, ms = [], []
@@ -324,19 +349,25 @@ def render_sets(state, cfg: hac.HACConfig, cameras,
 
 
 @torch.no_grad()
-def evaluate(state, cfg: hac.HACConfig, cameras, max_k: int = 1024,
-             white_background: bool = False, auto_k: bool = False,
-             decoded: bool = False) -> dict:
-    """PSNR/SSIM of the STE-quantised renders (of the decoded state's
-    attributes as they are, with `decoded`) against the cameras'
-    ground-truth images.
+def evaluate(state, cfg, cameras, white_background: bool = False,
+             decoded: bool = False, auto_k: bool = True,
+             max_k: int | None = None, max_d: int | None = None) -> dict:
+    """PSNR/SSIM of the eval renders (STE-quantised for HAC's float state,
+    the decoded state's attributes as they are with `decoded`) against the
+    cameras' ground-truth images, for every family.
 
-    K is the per-tile cap (the r5 soak evaluated at 1024), or with `auto_k`
-    the smallest visually lossless one on the first camera
-    (`select_eval_k`); D comes from `select_eval_d`, capped at 128."""
-    if auto_k and cameras:
-        max_k = select_eval_k(state, cfg, cameras[0], decoded=decoded)
-    max_d = select_eval_d(state, cfg, cameras, decoded=decoded)
+    The caps follow the JAX package's rule: with `auto_k` (the default) K
+    is the smallest visually lossless one on the first camera
+    (`select_eval_k`) and D covers every footprint (`select_eval_d`,
+    capped at 128); without it K 256 and D 32. `max_k` / `max_d` fix a cap
+    instead (the r5 soak evaluated at K 1024)."""
+    cfg = _base(cfg)
+    if max_k is None:
+        max_k = (select_eval_k(state, cfg, cameras[0], decoded=decoded)
+                 if auto_k and cameras else 256)
+    if max_d is None:
+        max_d = (select_eval_d(state, cfg, cameras, decoded=decoded)
+                 if auto_k and cameras else 32)
     renders, ms = render_sets(state, cfg, cameras, white_background, decoded,
                               max_k=max_k, max_d=max_d)
     per_view = {}

@@ -89,8 +89,15 @@ def training_loss(params, rest, cfg: hac.HACConfig, cam: CameraArrays,
     out = render_view(state, cfg, cam, rcfg, bg_color, training=True,
                       phase=phase, noise=noise, generator=generator,
                       means2d_extra=means2d_extra)
+    return objective(state, cfg, cam.image, out, lmbda, lambda_dssim)
+
+
+def objective(state, cfg, gt: torch.Tensor, out: dict, lmbda: float,
+              lambda_dssim: float = 0.2):
+    """The loss and aux of a training render `out` (render_view's dict)
+    against the ground truth `gt`; shared by the families whose objective
+    is HAC's with their own rate terms (HAC++)."""
     img = out["render"]
-    gt = cam.image
     l1 = img_lib.l1_loss(img, gt)
     ssim_v = img_lib.ssim(img, gt)
     ng = out["gaussians"]

@@ -97,6 +97,7 @@ def make_optimizer(opt: OptConfig, spatial_lr_scale: float) -> optim.GroupAdam:
     }
 
     def group_of(name: str) -> str:
+        # a family's own nets (HAC++'s channel_ctx) take mlp_grid's schedule
         keys = name.split("/")
         if keys[0] == "anchors":
             return keys[1]  # offset/mask/anchor_feat/scaling
@@ -127,14 +128,20 @@ def zero_stats(capacity: int, n_offsets: int, device="cpu") -> dict:
 
 
 def make_train_step(cfg, rcfg: raster.RasterConfig, optimizer: optim.GroupAdam,
-                    opt: OptConfig, white_background: bool = False):
+                    opt: OptConfig, loss_fn=None, grad_mask=None,
+                    white_background: bool = False):
     """step(params, rest, opt_state, stats, cam, phase=0, noise=None,
     generator=None) -> (params, opt_state, stats, metrics).
 
     `cam` carries its ground-truth image (CameraArrays.from_camera(...,
     with_image=True)); `noise`/`generator` feed the phase's quantization
-    noise (see generate_neural_gaussians). The leaves, the moments and the
-    statistics are updated in place."""
+    noise (see generate_neural_gaussians). `loss_fn` is the family's
+    objective, HAC's by default (same signature and aux); `grad_mask(grads,
+    phase)` returns the gradients (by leaf name) with the family's frozen
+    groups zeroed. The leaves, the moments and the statistics are updated
+    in place."""
+    if loss_fn is None:
+        loss_fn = hac_render.training_loss
 
     def step_fn(params, rest, opt_state, stats, cam, phase: int = 0,
                 noise=None, generator=None):
@@ -147,7 +154,7 @@ def make_train_step(cfg, rcfg: raster.RasterConfig, optimizer: optim.GroupAdam,
         with torch.enable_grad():
             for t in leaves.values():
                 t.requires_grad_(True)
-            loss, aux = hac_render.training_loss(
+            loss, aux = loss_fn(
                 params, rest, cfg, cam, rcfg, bg, phase, noise, m2d, opt.lmbda,
                 opt.lambda_dssim, generator=generator)
             got = torch.autograd.grad(loss, [*leaves.values(), m2d],
@@ -155,6 +162,8 @@ def make_train_step(cfg, rcfg: raster.RasterConfig, optimizer: optim.GroupAdam,
         g_m2d = got[-1] if got[-1] is not None else torch.zeros_like(m2d)
         grads = {name: g if g is not None else torch.zeros_like(t)
                  for (name, t), g in zip(leaves.items(), got[:-1])}
+        if grad_mask is not None:
+            grads = grad_mask(grads, phase)
         # a non-finite gradient would poison the Adam moments: drop the
         # component (not nan_to_num, which would keep +-inf as +-max) and
         # report the count

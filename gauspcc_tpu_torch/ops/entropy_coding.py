@@ -1,5 +1,5 @@
 """File-level entropy coding of quantized tensors (counterpart of
-gauspcc_tpu/ops/entropy_coding.py:30-94, :213-256).
+gauspcc_tpu/ops/entropy_coding.py:30-168, :213-256).
 
 The models are computed in torch on the tensors' device; the bits are
 written by the port's native coder on the host (`ops/coder.py`). A tensor
@@ -11,7 +11,9 @@ Gaussian symbols are residuals r = round(x / q) - round(mean / q), coded
 under the residual-space model (mean / q - round(mean / q), scale / q) that
 the coder evaluates itself. Encoder and decoder compute the centre and the
 model with the same operations, so on one device and one build they agree
-bit for bit. The mixture and factorized coders wait for HAC++ and CAT.
+bit for bit. The mixture coder (HAC++'s features) centres its residuals on
+round(sum_k p_k mean_k / q) and hands the coder K components per symbol.
+The factorized coders wait for ROADMAP.md Queue 1 item 7h.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 from gauspcc_tpu_torch.core import cdf as cdf_lib
 from gauspcc_tpu_torch.ops import coder
 
-_LATER = "the mixture and factorized coders come with HAC++ and CAT-3DGS (ROADMAP.md Queue 1 item 7)"
+_LATER = ("the factorized coders are not ported yet: no family of the port "
+          "calls them (ROADMAP.md Queue 1 item 7h)")
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -64,6 +67,34 @@ def gaussian_values(x, mean, scale, q) -> torch.Tensor:
     res, center, _, _ = _residual_model(x, mean, scale, q)
     if res.numel() == 0:
         return torch.zeros(0, dtype=torch.float32, device=mean.device)
+    rmin = int(res.min())
+    return _dequantize(res - rmin, rmin, center, q)
+
+
+def _mixture_model(means, scales, probs, q):
+    """Flat [N] components -> (centre, [K, N] mu, sigma, weights in residual
+    space), as the decoder recomputes them."""
+    center = cdf_lib.mixture_center(means, probs, q)
+    mu = torch.stack([m / q - center for m in means])
+    sig = torch.stack([s / q for s in scales])
+    return center, mu, sig, torch.stack(list(probs))
+
+
+def _flat_mixture(means, scales, probs, q):
+    means = [_flat(m) for m in means]
+    return (means, [_flat(s) for s in scales], [_flat(p) for p in probs],
+            _as_q(q, means[0]))
+
+
+@torch.no_grad()
+def mixture_values(x, means, scales, probs, q) -> torch.Tensor:
+    """What `decode_gaussian_mixed` returns for what `encode_gaussian_mixed`
+    codes, computed on the encoder's side with the decoder's function."""
+    means, scales, probs, q = _flat_mixture(means, scales, probs, q)
+    center = cdf_lib.mixture_center(means, probs, q)
+    res = torch.round(_flat(x) / q) - center
+    if res.numel() == 0:
+        return torch.zeros(0, dtype=torch.float32, device=q.device)
     rmin = int(res.min())
     return _dequantize(res - rmin, rmin, center, q)
 
@@ -138,12 +169,45 @@ def decode_binary(n: int, file_name: str, device="cpu") -> torch.Tensor:
     return torch.from_numpy(sym.astype(np.float32)).to(device)
 
 
-def encode_gaussian_mixed(*args, **kwargs):
-    raise NotImplementedError(_LATER)
+@torch.no_grad()
+def encode_gaussian_mixed(x, means, scales, probs, q, file_name: str) -> int:
+    """Arithmetic-encode x (flat [N]) under per-element mixtures of K
+    Gaussians (means, scales, probs: K tensors shaped like x), of step q.
+    Returns the bits written."""
+    means, scales, probs, q = _flat_mixture(means, scales, probs, q)
+    center, mu, sig, w = _mixture_model(means, scales, probs, q)
+    res = torch.round(_flat(x) / q) - center
+    if res.numel() == 0:
+        payload, rmin, rmax = np.uint32(0).tobytes(), 0, 0
+    else:
+        k = len(means)
+        host = torch.cat([res[None], mu, sig, w]).to(torch.float32).cpu().numpy()
+        res_np = host[0].astype(np.int32)
+        rmin, rmax = int(res_np.min()), int(res_np.max())
+        payload = coder.encode_gauss(
+            host[1:1 + k].T, host[1 + k:1 + 2 * k].T,
+            (res_np - rmin).astype(np.int16), rmin, rmax,
+            w=host[1 + 2 * k:].T)
+    _write(file_name, [rmin, rmax], payload)
+    return (len(payload) + 8) * 8
 
 
-def decode_gaussian_mixed(*args, **kwargs):
-    raise NotImplementedError(_LATER)
+@torch.no_grad()
+def decode_gaussian_mixed(means, scales, probs, q, file_name: str) -> torch.Tensor:
+    """Inverse of encode_gaussian_mixed: float32 [N] on the means' device."""
+    means, scales, probs, q = _flat_mixture(means, scales, probs, q)
+    with open(file_name, "rb") as f:
+        rmin = int(np.frombuffer(f.read(4), dtype=np.float32)[0])
+        rmax = int(np.frombuffer(f.read(4), dtype=np.float32)[0])
+        payload = f.read()
+    if means[0].numel() == 0:
+        return torch.zeros(0, dtype=torch.float32, device=q.device)
+    k = len(means)
+    center, mu, sig, w = _mixture_model(means, scales, probs, q)
+    host = torch.cat([mu, sig, w]).to(torch.float32).cpu().numpy()
+    sym = coder.decode_gauss(host[:k].T, host[k:2 * k].T, payload, rmin, rmax,
+                             w=host[2 * k:].T)
+    return _dequantize(torch.from_numpy(sym).to(q.device), rmin, center, q)
 
 
 def encode_factorized(*args, **kwargs):

@@ -174,7 +174,8 @@ def test_encode_binary_file_equals_jax_and_decodes(tmp_path, p):
 
 
 def test_unported_coders_raise():
-    for fn in (ec.encode_gaussian_mixed, ec.decode_gaussian_mixed,
-               ec.encode_factorized, ec.decode_factorized):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    """The factorized coders, which no ported family calls, are still to
+    come (the mixture coders are ported: tests/test_torch_hac_plus.py)."""
+    for fn in (ec.encode_factorized, ec.decode_factorized):
+        with pytest.raises(NotImplementedError, match="item 7h"):
             fn()

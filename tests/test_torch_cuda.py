@@ -677,3 +677,60 @@ def test_scene_roundtrip_on_the_card(cuda_device, tmp_path):
                       ("offset", "offset")):
         assert torch.equal(d[key][:m], values[name]), name
     assert sizes["total"] > 0
+
+
+@pytest.mark.cuda
+def test_hac_plus_scene_roundtrip_on_the_card(cuda_device, tmp_path):
+    """A small seeded HAC++ state (the widths of tests/test_hac_plus.py)
+    through its conduct_encoding and conduct_decoding on the card, with
+    seeded codec weights at NetConfig(16, 3): anchors, masks, hash signs
+    and every decoded attribute, each feature chunk included, equal to what
+    the encoder coded, through both rANS kernels."""
+    from gauspcc_tpu_torch.codecs.gauspcgc import model
+    from gauspcc_tpu_torch.models.hac import codec as hac_codec
+    from gauspcc_tpu_torch.models.hac import model as hac
+    from gauspcc_tpu_torch.models.hac_plus import codec as hacp_codec
+    from gauspcc_tpu_torch.models.hac_plus import model as hacp
+    from gauspcc_tpu_torch.ops import rans
+    cfg = hacp.HACPlusConfig(feat_dim=10, n_offsets=3, voxel_size=0.05,
+                             resolutions_3d=(6, 10, 16), resolutions_2d=(16, 32),
+                             log2_hashmap_size=13, log2_hashmap_size_2d=13)
+    rng = np.random.default_rng(0)
+    pts = hac.voxelize_points((rng.random((4000, 3)) * 2 - 1).astype(np.float32),
+                              cfg.voxel_size)
+    state = hac.update_anchor_bound(hacp.init_state(cfg, pts, rng,
+                                                    device=cuda_device))
+    n = pts.shape[0]
+    a = state["anchors"]
+    for name, mu, sd in (("anchor_feat", 0, 0.5), ("offset", 0, 0.3),
+                         ("mask", 1.0, 2.0)):
+        a[name][:n] = torch.from_numpy(rng.normal(mu, sd, tuple(a[name][:n].shape))
+                                       .astype(np.float32)).to(cuda_device)
+    pcfg = model.NetConfig(channels=16, kernel_size=3)
+    net = model.GausPcgcNet(pcfg)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    net = net.to(cuda_device)
+    enc, dec_launches = rans.encode_launches, rans.decode_launches
+    values = {}
+    sizes, _ = hacp_codec.conduct_encoding(state, cfg, str(tmp_path), net, pcfg,
+                                           values=values)
+    dec, _ = hacp_codec.conduct_decoding(state, cfg, str(tmp_path), net, pcfg)
+    assert rans.encode_launches > enc and rans.decode_launches > dec_launches
+    data = hac_codec._gather_sorted_attributes(state, cfg.as_hac())
+    m = data["anchor_int"].shape[0]
+    assert m > hacp_codec.BATCH and int(dec["valid"].sum()) == m
+    d = dec["anchors"]
+    np.testing.assert_array_equal(
+        d["anchor"][:m].cpu().numpy(),
+        data["anchor_int"].astype(np.float32) * cfg.voxel_size)
+    assert torch.equal(d["mask"][:m], data["mask"])
+    assert torch.equal(dec["nets"].tables.flat(), hac.encoding_params_flat(state))
+    for cc in range(hacp.N_CHUNKS):
+        cols = slice(cc * cfg.chunk, (cc + 1) * cfg.chunk)
+        assert torch.equal(d["anchor_feat"][:m, cols], values["feat"][:, cols]), cc
+    for name, key in (("scaling", "scaling"), ("offset", "offset")):
+        assert torch.equal(d[key][:m], values[name]), name
+    assert sizes["total"] > 0

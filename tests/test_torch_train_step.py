@@ -393,3 +393,24 @@ def test_select_eval_k_matches_jax_and_drives_evaluate():
     assert got == want and 4 < got <= 64
     res = tpipeline.evaluate(tstate, TCFG, [cam], auto_k=True)
     assert res["eval_k"] == tpipeline.select_eval_k(tstate, TCFG, cam)
+
+
+@pytest.mark.parametrize("auto_k", [True, False])
+def test_evaluate_picks_k_and_d_as_jax_does(tmp_path, auto_k):
+    """evaluate's caps on the same state and camera: by default (auto_k)
+    select_eval_k's K and select_eval_d's D, else K 256 and D 32, as the
+    JAX package's evaluate (pipeline.py:447-458) picks them."""
+    state, flat = jax_state(9)
+    _, _, cam = camera(9)
+    from gauspcc_tpu.data.cameras import Camera as JCamera
+    jc = JCamera(uid=0, R=cam.R, T=cam.T, fovx=cam.fovx, fovy=cam.fovy,
+                 width=32, height=32, image=cam.image)
+    want = jpipeline.evaluate(state, JCFG, [jc], str(tmp_path), auto_k=auto_k)
+    tstate = convert.state_from_numpy(flat, TCFG, device="cpu")
+    got = tpipeline.evaluate(tstate, TCFG, [cam],
+                             **({} if auto_k else {"auto_k": False}))
+    assert (got["eval_k"], got["eval_d"]) == (want["eval_k"], want["eval_d"])
+    if auto_k:
+        assert got["eval_d"] == tpipeline.select_eval_d(tstate, TCFG, [cam]) < 32
+    else:
+        assert (got["eval_k"], got["eval_d"]) == (256, 32)
