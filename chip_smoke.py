@@ -78,6 +78,26 @@ non-zero exit and no result line:
           decoded frame checked against the plain blend; codec_delta_db
           printed, not held (the float eval of a HAC++ state renders
           unquantised attributes, as the JAX package's does)
+  tcgs    TC-GS (`soak.train(model="tcgs")`) on the same scene at the full
+          TCGSConfig width (feat_dim 50, 10 offsets, planes [3, 16, 32, 32]
+          sampled 4 times an anchor in repeat mode, an 8-channel latent,
+          mlp_triplane 195 -> 100 -> 175), 600 steps as the train phase
+          runs HAC (the soak's schedule stops at phase 2, as the JAX
+          package's does), with the same checks, the planes and
+          mlp_triplane moved and the autoencoder not; the triplane
+          context of a phase-2 step timed (forward, and forward with
+          backward, CUDA events); then 50 steps at phase 3
+          through the family's train step (lae joins the loss): finite
+          loss, lae finite and positive, the autoencoder moved, both
+          kernels launched; its scene stream encoded twice (the same
+          sizes; mlps exactly 1,636,320 bits and the f16 latent 6,144, as
+          the JAX r5 record), split into anchors, context and host coder,
+          beside HAC's and HAC++'s sizes; decoded in a fresh process
+          (--decode-scene) with every value exact, the f16 latent and the
+          planes reconstructed from it too, K5 and K1 launches counted and
+          one decoded frame checked against the plain blend;
+          codec_delta_db printed, not held (a TC-GS float eval renders
+          unquantised attributes, as the JAX package's does)
   reference  the whole slice at small widths on a 64x64 scene, on the card
           and through the port's CPU path, compared: ground truth, eval
           renders, and 3 training steps at phase 0
@@ -121,8 +141,9 @@ tables and on every random case; each of the finest level's stages is
 timed in turns (baseline, kernel, kernel, baseline) beside the kernels.
 
 Then one JSON line per the port's kernels (launches, error, times, bound;
-`launches_hac_plus`, each kernel's launches on the HAC++ path: training's
-for the blend kernels, the scene encode's and decode's for rANS) and,
+`launches_hac_plus` and `launches_tcgs`, each kernel's launches on the
+HAC++ and the TC-GS path: training's for the blend kernels, TC-GS's 600
+steps and 50 at phase 3, the scene encode's and decode's for rANS) and,
 last, {"ok": true, "device": {...}}. Nothing is written into the tree
 except the builds under gauspcc_tpu_torch/build/ (gitignored); the codecs'
 streams, the handed-off state and the decoded points go to temporary
@@ -131,14 +152,15 @@ directories.
 With --decode BIN --out NPY it only decodes BIN with the r5 weights, twice
 (the two must agree), saves the first decode's points to NPY and prints one
 JSON line with the decode times, the per-level profile and the launches.
-With --decode-scene DIR it only decodes and evaluates the scene (of
-either family) that the scene codec or the hac_plus phase handed off in DIR
-and prints one JSON line.
+With --decode-scene DIR it only decodes and evaluates the scene (of any
+family) that the scene codec, the hac_plus or the tcgs phase handed off in
+DIR and prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import json
 import pickle
@@ -160,6 +182,7 @@ from gauspcc_tpu_torch.codecs.gauspcgc import codec as pcgc_codec
 from gauspcc_tpu_torch.codecs.gauspcgc import model as pcgc_model
 from gauspcc_tpu_torch.core import cdf
 from gauspcc_tpu_torch.core.quant import ste_multistep
+from gauspcc_tpu_torch.fields import triplane as tri
 from gauspcc_tpu_torch.models import registry
 from gauspcc_tpu_torch.models.hac import codec as hac_codec
 from gauspcc_tpu_torch.models.hac import model as hac
@@ -168,6 +191,8 @@ from gauspcc_tpu_torch.models.hac import render as hac_render
 from gauspcc_tpu_torch.models.hac import train as hac_train
 from gauspcc_tpu_torch.models.hac_plus import codec as hacp_codec
 from gauspcc_tpu_torch.models.hac_plus import model as hacp
+from gauspcc_tpu_torch.models.tcgs import codec as tcgs_codec
+from gauspcc_tpu_torch.models.tcgs import model as tcgs
 from gauspcc_tpu_torch.ops import rans, sibconv, sparse
 from gauspcc_tpu_torch.render import raster, tile_blend
 from gauspcc_tpu_torch.utils import checkpoint, image as img_lib
@@ -238,6 +263,12 @@ RANS_RANDOM_CASES = ((16384, 11_111), (16384, 0), (2048, 2047))
 ROOT = Path(__file__).resolve().parent
 SCENE_CODEC_WEIGHTS = ROOT / "model" / "gauspcgc" / "best_model.npz"
 SCENE_DELTA_DB = 0.01
+# tcgs phase: the steps at phase 3 after the soak's 600 (the soak's schedule
+# stops at phase 2, as the JAX package's does), and the sizes TCGSConfig's
+# full width must give, as the JAX r5 record (runs/soak_tcgs_r5) has them
+TCGS_PHASE3_STEPS = 50
+TCGS_MLP_BITS = 1_636_320
+TCGS_LATENT_BITS = 6_144
 
 
 def log(msg: str) -> None:
@@ -1329,12 +1360,14 @@ def decode_in_fresh_process(tmp: str, model: str, state, cfg, scene, values,
         json.dump({"model": model, "cfg": cfg._asdict()}, f)
     with open(Path(tmp) / "cams.pkl", "wb") as f:
         pickle.dump(scene.test_cameras, f)
+    extra = {}
+    if hasattr(state["nets"], "tables"):
+        extra["hash"] = (hac.encoding_params_flat(state).detach().cpu().numpy()
+                         .astype(np.int8))
     np.savez(Path(tmp) / "expect.npz",
              anchor=data["anchor_int"].astype(np.float32) * cfg.voxel_size,
-             mask=data["mask"].cpu().numpy(),
-             hash=hac.encoding_params_flat(state).detach().cpu().numpy()
-             .astype(np.int8),
-             **{k: v.cpu().numpy() for k, v in values.items()})
+             mask=data["mask"].cpu().numpy(), **extra,
+             **{k: v.detach().cpu().numpy() for k, v in values.items()})
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                            "--decode-scene", tmp],
@@ -1533,6 +1566,293 @@ def hac_plus_phase(dev, scene, serve_psnr: float, hac_sizes: dict) -> dict:
         f"a limit: the JAX package's float eval of a HAC++ state does not "
         f"quantise); size {sizes['total'] / hac_codec.BIT2MB:.4f} MB")
     return {"tile_blend": fwd, "tile_blend_backward": bwd,
+            "rans_encode": enc_launches, "rans_decode": dec["rans_decode"]}, sizes
+
+
+def context_ms(state, cfg) -> tuple[float, float, Counter]:
+    """CUDA-event ms (mean of 10 back-to-back runs) of TC-GS's triplane
+    context over every capacity row at a training step: the planes sampled
+    and mlp_triplane's heads, forward; and forward with the backward to
+    the planes and mlp_triplane for a seeded upstream gradient; and the
+    forward's host syncs."""
+    anchor = hac.get_anchor(state, cfg.as_hac()).detach()
+    nets = state["nets"]
+    leaves = [nets.planes, *nets.mlp_triplane.parameters()]
+    gen = torch.Generator(device=anchor.device).manual_seed(SEED)
+
+    def forward():
+        return tcgs.grid_mlp_split(state, cfg,
+                                   tcgs.triplane_context(state, cfg, anchor))
+
+    with torch.no_grad():
+        upstream = {k: torch.randn(v.shape, generator=gen, device=v.device)
+                    for k, v in forward().items()}
+        fwd = cuda_ms(forward, 10)
+        syncs = host_syncs(forward)
+
+    def forward_backward():
+        with torch.enable_grad():
+            ctx = forward()
+            torch.autograd.grad(sum((ctx[k] * g).sum() for k, g in
+                                    upstream.items()), leaves)
+
+    return fwd, cuda_ms(forward_backward, 10), syncs
+
+
+@torch.no_grad()
+def context_diagnostics(state, cfg, scene) -> None:
+    """The quantisation steps the triplane context gives the coded anchors
+    from the state's planes (training's context) and from the planes the
+    codec reconstructs from the f16 latent (the coded context): their
+    means, and the largest ratio between the two; and the held-out PSNR of
+    the state with its attributes quantised as the codec quantises them,
+    through either context, all three attributes or one at a time."""
+    data = hac_codec._gather_sorted_attributes(state, cfg.as_hac())
+    pos = hac_codec._positions(data["anchor_int"], cfg.as_hac(),
+                               state["valid"].device)
+    latent, recon = tcgs.reconstructed_planes(state)
+    lat16 = latent.half().float()
+    coded = tri.decode_latent(state["nets"].autoencoder, lat16)
+    heads = {}
+    for name, planes in (("training's planes", state["nets"].planes),
+                         ("the latent's reconstruction", coded)):
+        heads[name] = tcgs_codec._batch_context(state, cfg, pos, planes)
+    for q in ("q_feat", "q_scaling", "q_offsets"):
+        a, b = (h[q] for h in heads.values())
+        log(f"  {q} at the {pos.shape[0]} coded anchors: mean "
+            + ", ".join(f"{float(h[q].mean()):.5g} from {n}"
+                        for n, h in heads.items())
+            + f"; largest ratio {float(torch.maximum(a / b, b / a).max()):.4g}")
+    log(f"  planes: training's mean {float(state['nets'].planes.mean()):.4f}, "
+        f"std {float(state['nets'].planes.std()):.4f}; the reconstruction's "
+        f"mean {float(coded.mean()):.4f}, std {float(coded.std()):.4f}; "
+        f"|reconstruction - autoencode(planes)| max "
+        f"{float((coded - recon).abs().max()):.3e}")
+    a = state["anchors"]
+    anchor = hac.get_anchor(state, cfg.as_hac())
+    scaling = hac.get_scaling(state)
+    for name, planes in (("training's", state["nets"].planes),
+                         ("the coded", coded)):
+        ctx = tcgs_codec._batch_context(state, cfg, anchor, planes)
+        quantised = {
+            "anchor_feat": ste_multistep(a["anchor_feat"], ctx["q_feat"],
+                                         a["anchor_feat"].mean()),
+            "scaling": torch.log(torch.clamp_min(ste_multistep(
+                scaling, ctx["q_scaling"], scaling.mean()), 1e-9)),
+            "offset": ste_multistep(a["offset"], ctx["q_offsets"][:, None, :],
+                                    a["offset"].mean())}
+        psnr = {}
+        for which in ("all", *quantised):
+            fields = quantised if which == "all" else {which: quantised[which]}
+            st = dict(state, anchors=dict(a, **fields))
+            psnr[which] = pipeline.evaluate(st, cfg, scene.test_cameras,
+                                            max_k=EVAL_K,
+                                            white_background=True)["psnr"]
+        log(f"  held-out PSNR with the attributes quantised through "
+            f"{name} context: " + ", ".join(f"{k} {v:.4f} dB"
+                                            for k, v in psnr.items()))
+
+
+def tcgs_phase(dev, scene, serve_psnr: float, hac_sizes: dict,
+               hacp_sizes: dict) -> dict:
+    """TC-GS on the soak scene at the full TCGSConfig width: train through
+    the soak's schedule (phases 0-2), then TCGS_PHASE3_STEPS steps at phase
+    3 through the family's own train step, check both; encode twice,
+    decode and evaluate in a fresh process, evaluate the float state.
+    Returns the path's launches of each kernel."""
+    family = registry.get_family("tcgs")
+    tile_blend.launches = 0
+    tile_blend.backward_launches = 0
+    t0 = time.perf_counter()
+    state, cfg, opt, res = soak.train(
+        scene, TRAIN_STEPS, model="tcgs", voxel_size=VOXEL_SIZE,
+        white_background=True, log=lambda m: log(f"  {m}"), log_every=100,
+        device=dev, **TRAIN_DENSIFY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = tile_blend.launches, tile_blend.backward_launches
+    nets = state["nets"]
+    log(f"  TCGSConfig: feat_dim {cfg.feat_dim}, {cfg.n_offsets} offsets, "
+        f"planes {tuple(nets.planes.shape)}, {cfg.tri_samples} samples an "
+        f"anchor ({'knn' if cfg.knn_sampling else 'repeat'} mode), latent "
+        f"{cfg.ae_compressed} channels, mlp_triplane {cfg.ctx_dim} -> "
+        f"{2 * cfg.feat_dim} -> {cfg.grid_out_dim}, q_offsets base "
+        f"{cfg.q_offsets}")
+    log(f"  {TRAIN_STEPS} steps in {wall:.3f} s ({wall / TRAIN_STEPS * 1e3:.3f} "
+        f"ms a step, densification and cap checks included); tile_blend "
+        f"launches {fwd}, backward launches {bwd}")
+    if fwd == 0 or bwd == 0:
+        raise RuntimeError("TC-GS training did not launch both blend kernels")
+    training_report(res)
+    if res["history"]["phase"].max() != 2:
+        raise RuntimeError("the soak's schedule did not stop at phase 2")
+    # planes and mlp_triplane have no gradient before phase 2 (their
+    # objective is the rate's), the autoencoder none before phase 3
+    init = tcgs.TCGSNets(cfg).init_seeded(np.random.default_rng(SEED))
+
+    def leaves(module, part: str) -> list:
+        return [p for name, p in module.named_parameters()
+                if name.split(".")[0] == part]
+
+    changes = {part: max(float((p.detach().cpu() - q.detach()).abs().max())
+                         for p, q in zip(leaves(nets, part), leaves(init, part)))
+               for part in ("planes", "mlp_triplane", "autoencoder")}
+    log("  largest change from the seeded init after the soak: " + ", ".join(
+        f"{k} {v:.4e}" for k, v in changes.items()))
+    if not (changes["planes"] > 0 and changes["mlp_triplane"] > 0):
+        raise RuntimeError("phase 2 did not train the planes and mlp_triplane")
+    if changes["autoencoder"] != 0:
+        raise RuntimeError("the autoencoder moved before phase 3")
+    trained = pipeline.evaluate(state, cfg, scene.test_cameras, max_k=EVAL_K,
+                                white_background=True)
+    log(f"  held-out PSNR {trained['psnr']:.3f} dB trained (float attributes, "
+        f"as the JAX package renders a TC-GS state), {serve_psnr:.3f} dB "
+        f"untrained (serve phase); K={trained['eval_k']} D={trained['eval_d']}")
+    if not trained["psnr"] > serve_psnr:
+        raise RuntimeError("TC-GS training did not raise the held-out PSNR")
+
+    # the triplane context of a phase-2 step, the step itself, and phase 3,
+    # on a copy: the soak's state is what is coded, as the JAX package's
+    # soak codes it
+    work = copy.deepcopy(state)
+    rcfg = res["rcfg"]
+    optimizer = hac_train.make_optimizer(opt, scene.cameras_extent)
+    step_fn = hac_train.make_train_step(cfg, rcfg, optimizer, opt,
+                                        loss_fn=family.training_loss,
+                                        white_background=True)
+    params, rest = hac.split_state(work)
+    box = copy.deepcopy({"opt": res["opt_state"], "stats": res["stats"]})
+    cams = [hac_render.CameraArrays.from_camera(c, dev, with_image=True)
+            for c in scene.train_cameras]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    turn = [0]
+
+    def one_step(phase):
+        cam = cams[turn[0] % len(cams)]
+        turn[0] += 1
+        _, box["opt"], box["stats"], m = step_fn(
+            params, rest, box["opt"], box["stats"], cam, phase=phase,
+            generator=gen)
+        return m
+
+    ctx_fwd, ctx_both, syncs = context_ms(work, cfg)
+    walls = sorted(wall_ms(lambda: one_step(2), 5))
+    log(f"  triplane context of a phase-2 step ({int(work['valid'].shape[0])} "
+        f"capacity rows): forward {ctx_fwd:.4f} ms, forward and backward "
+        f"{ctx_both:.4f} ms (CUDA events, mean of 10 back-to-back runs); "
+        f"forward's host syncs {sum(syncs.values())} "
+        + ", ".join(f"{k} x{v}" for k, v in syncs.most_common())
+        + f"; the whole phase-2 step {walls[2]:.4f} ms (host wall clock, "
+        f"median of 5)")
+
+    # phase 3, the reference's objective after step 15,000: lae joins
+    @torch.no_grad()
+    def lae_now() -> float:
+        _, aux = family.training_loss(
+            params, rest, cfg, cams[0], rcfg, torch.ones(3, device=dev), 3,
+            None, None, opt.lmbda, generator=torch.Generator(
+                device=dev).manual_seed(SEED))
+        return float(aux["lae"])
+
+    ae = work["nets"].autoencoder
+    ae_before = [p.detach().clone() for p in ae.parameters()]
+    lae0 = lae_now()
+    tile_blend.launches = 0
+    tile_blend.backward_launches = 0
+    t0 = time.perf_counter()
+    p3 = [one_step(3) for _ in range(TCGS_PHASE3_STEPS)]
+    torch.cuda.synchronize()
+    p3_wall = time.perf_counter() - t0
+    fwd3, bwd3 = tile_blend.launches, tile_blend.backward_launches
+    lae1 = lae_now()
+    losses = [float(m["loss"]) for m in p3]
+    nonfinite = sum(int(m["nonfinite_grads"]) for m in p3)
+    ae_moved = max(float((p.detach() - q).abs().max())
+                   for p, q in zip(ae.parameters(), ae_before))
+    log(f"  phase 3: {TCGS_PHASE3_STEPS} steps in {p3_wall:.3f} s, loss first "
+        f"{losses[0]:.5f} last {losses[-1]:.5f}, bits per parameter last "
+        f"{float(p3[-1]['bit_per_param']):.4f}, lae {lae0:.5f} -> {lae1:.5f}, "
+        f"autoencoder's largest change {ae_moved:.4e}, non-finite gradient "
+        f"components {nonfinite}; tile_blend launches {fwd3}, backward {bwd3}")
+    if not (np.isfinite(losses).all() and np.isfinite([lae0, lae1]).all()
+            and lae0 > 0 and lae1 > 0):
+        raise RuntimeError("phase 3's loss or lae is not finite and positive")
+    if not ae_moved > 0:
+        raise RuntimeError("phase 3 did not train the autoencoder")
+    if fwd3 == 0 or bwd3 == 0:
+        raise RuntimeError("phase 3 did not launch both blend kernels")
+
+    pcc_cfg = pcgc_model.NetConfig()
+    net = convert.load_codec_npz(SCENE_CODEC_WEIGHTS, pcc_cfg, device=dev)
+    # what the coding costs after phase 3, in this process (not held)
+    with tempfile.TemporaryDirectory() as tmp:
+        tcgs_codec.conduct_encoding(work, cfg, tmp, net, pcc_cfg)
+        dec3, _ = tcgs_codec.conduct_decoding(work, cfg, tmp, net, pcc_cfg)
+    psnr3 = [pipeline.evaluate(st, cfg, scene.test_cameras, max_k=EVAL_K,
+                               white_background=True, decoded=d)["psnr"]
+             for st, d in ((work, False), (dec3, True))]
+    log(f"  after phase 3, in this process: PSNR float {psnr3[0]:.4f} dB, "
+        f"decoded {psnr3[1]:.4f} dB, codec_delta_db {psnr3[0] - psnr3[1]:+.5f}")
+    del work, params, rest, box, dec3
+    context_diagnostics(state, cfg, scene)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bs_dir = str(Path(tmp) / "bitstreams")
+        t0 = time.perf_counter()
+        first, _ = tcgs_codec.conduct_encoding(state, cfg, bs_dir, net, pcc_cfg)
+        log(f"  first encode (set-up included): {time.perf_counter() - t0:.3f} s")
+        values, prof = {}, {}
+        rans.encode_launches = 0
+        sizes, _ = tcgs_codec.conduct_encoding(state, cfg, bs_dir, net, pcc_cfg,
+                                               values=values, profile=prof)
+        enc_launches = rans.encode_launches
+        if sizes != first:
+            raise RuntimeError(f"two encodes of one state differ: {first} vs "
+                               f"{sizes}")
+        n = values["feat"].shape[0]
+        log(f"  encode: {prof['total_s']:.4f} s wall, {n} anchors: anchors "
+            f"(GausPcgc) {prof['anchors_s']:.4f} s, context "
+            f"{prof['context_ms']:.3f} ms (CUDA events, the latent's "
+            f"reconstruction and {(n + tcgs_codec.BATCH - 1) // tcgs_codec.BATCH}"
+            f" batches), host coder {prof['coder_s']:.4f} s (host wall clock), "
+            f"the rest {prof['total_s'] - prof['anchors_s'] - prof['coder_s']:.4f}"
+            f" s; rans_encode launches {enc_launches}")
+        others = {"hac": hac_sizes, "hac_plus": hacp_sizes}
+        log("  encoded sizes in MB, TC-GS (HAC, HAC++ in this run): " + ", ".join(
+            f"{k} {v / hac_codec.BIT2MB:.4f} (" + ", ".join(
+                f"{o[k] / hac_codec.BIT2MB:.4f}" if k in o else "-"
+                for o in others.values()) + ")" for k, v in sizes.items()))
+        if enc_launches == 0:
+            raise RuntimeError("the TC-GS encode did not launch the rans "
+                               "encode kernel")
+        if (sizes["mlps"], sizes["triplane"]) != (TCGS_MLP_BITS, TCGS_LATENT_BITS):
+            raise RuntimeError(f"mlps {sizes['mlps']} and triplane "
+                               f"{sizes['triplane']} bits, not {TCGS_MLP_BITS} "
+                               f"and {TCGS_LATENT_BITS}")
+        data = hac_codec._gather_sorted_attributes(state, cfg.as_hac())
+        dec, child_s = decode_in_fresh_process(tmp, "tcgs", state, cfg, scene,
+                                               values, data)
+    dp = dec["profile"]
+    log(f"  decode in a fresh process ({child_s:.3f} s with start-up): first "
+        f"{dec['first_s']:.4f} s; second {dp['total_s']:.4f} s wall: anchors "
+        f"(GausPcgc) {dp['anchors_s']:.4f} s, context {dp['context_ms']:.3f} "
+        f"ms (CUDA events), host coder {dp['coder_s']:.4f} s; rans_decode "
+        f"launches {dec['rans_decode']}; exact: {', '.join(dec['exact'])}")
+    log(f"  decoded eval: tile_blend launches {dec['tile_blend']}, K="
+        f"{dec['eval_k']} D={dec['eval_d']}, ms/view "
+        f"{', '.join(f'{m:.3f}' for m in dec['ms'])}; one decoded frame, "
+        f"kernel vs plain max |diff| {dec['frame_err']:.3e}")
+    if dec["rans_decode"] == 0 or dec["tile_blend"] == 0:
+        raise RuntimeError("the TC-GS decode did not launch the rans decode "
+                           "kernel, or its eval the tile_blend kernel")
+    float_res = pipeline.evaluate(state, cfg, scene.test_cameras, max_k=EVAL_K,
+                                  white_background=True)
+    log(f"  PSNR decoded {dec['psnr']:.4f} dB (fresh process), float "
+        f"{float_res['psnr']:.4f} dB (unquantised attributes, this process): "
+        f"codec_delta_db {float_res['psnr'] - dec['psnr']:+.5f} (not held to "
+        f"a limit: the JAX package's float eval of a TC-GS state does not "
+        f"quantise); size {sizes['total'] / hac_codec.BIT2MB:.4f} MB")
+    return {"tile_blend": fwd + fwd3, "tile_blend_backward": bwd + bwd3,
             "rans_encode": enc_launches, "rans_decode": dec["rans_decode"]}
 
 
@@ -1568,11 +1888,16 @@ def decode_scene_main(tmp: str, device="cuda") -> int:
     a = dec["anchors"]
     got = {"anchor": a["anchor"][:n], "mask": a["mask"][:n],
            "feat": a["anchor_feat"][:n], "scaling": a["scaling"][:n],
-           "offset": a["offset"][:n],
-           "hash": dec["nets"].tables.flat().to(torch.int8)}
+           "offset": a["offset"][:n]}
+    if hasattr(dec["nets"], "tables"):
+        got["hash"] = dec["nets"].tables.flat().to(torch.int8)
+    if hasattr(dec["nets"], "planes"):  # TC-GS: the latent and its planes
+        got["latent"] = torch.from_numpy(np.load(
+            Path(bs_dir) / tcgs_codec.LATENT_FILE)["latent"])
+        got["planes"] = dec["nets"].planes
     checked = [f"{name} {tuple(t.shape)}" for name, t in got.items()]
     for name, t in got.items():
-        if not np.array_equal(t.cpu().numpy(), want[name]):
+        if not np.array_equal(t.detach().cpu().numpy(), want[name]):
             raise RuntimeError(f"decoded {name} differs from the encoder's")
     if hasattr(cfg, "chunk"):
         feat = got["feat"].cpu().numpy()
@@ -1636,8 +1961,8 @@ def main() -> int:
                         help="with --decode: where to save the decoded points")
     parser.add_argument("--decode-scene", metavar="DIR", default=None,
                         help="only decode and evaluate the scene handed off "
-                        "in DIR (the scene codec and hac_plus phases run this "
-                        "in a fresh process)")
+                        "in DIR (the scene codec, hac_plus and tcgs phases "
+                        "run this in a fresh process)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2097,7 +2422,11 @@ def main() -> int:
         hac_sizes = scene_codec_phase(dev, scene, tstate, tcfg)
 
     with Phase("hac_plus"):
-        hacp_launches = hac_plus_phase(dev, scene, serve_psnr, hac_sizes)
+        hacp_launches, hacp_sizes = hac_plus_phase(dev, scene, serve_psnr,
+                                                   hac_sizes)
+
+    with Phase("tcgs"):
+        tcgs_launches = tcgs_phase(dev, scene, serve_psnr, hac_sizes, hacp_sizes)
 
     with Phase("reference"):
         # the whole slice on the card against the port's CPU path (plain
@@ -2172,6 +2501,7 @@ def main() -> int:
 
     for row in codec_rows:
         row["launches_hac_plus"] = hacp_launches[row["name"]]
+        row["launches_tcgs"] = tcgs_launches[row["name"]]
     log(json.dumps({"kernels": [{
         "name": "tile_blend",
         "route": "cuda",
@@ -2179,6 +2509,7 @@ def main() -> int:
         "replaces": "gauspcc_tpu/render/pallas_blend.py:46",
         "launches": launches,
         "launches_hac_plus": hacp_launches["tile_blend"],
+        "launches_tcgs": tcgs_launches["tile_blend"],
         "max_abs_err": frame_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2192,6 +2523,7 @@ def main() -> int:
         "replaces": "gauspcc_tpu/render/raster.py:264",
         "launches": bwd_launches,
         "launches_hac_plus": hacp_launches["tile_blend_backward"],
+        "launches_tcgs": tcgs_launches["tile_blend_backward"],
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

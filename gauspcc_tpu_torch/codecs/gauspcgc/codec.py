@@ -58,16 +58,21 @@ def _bucket(n: int, minimum: int = 256) -> int:
 @contextmanager
 def _exact_gemms():
     """cuBLAS with full-precision reductions (float32 without TF32, bf16
-    summed in float32), as the JAX package's conv product, on both sides of
-    the codec alike."""
+    summed in float32), as the JAX package's conv product, and cuDNN's
+    convolutions in float32 without TF32 (TC-GS's autoencoder), on both
+    sides of the codec alike."""
     m = torch.backends.cuda.matmul
-    saved = (m.allow_tf32, m.allow_bf16_reduced_precision_reduction)
+    cudnn = torch.backends.cudnn
+    saved = (m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+             cudnn.allow_tf32)
     m.allow_tf32 = False
     m.allow_bf16_reduced_precision_reduction = False
+    cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = saved
+        (m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+         cudnn.allow_tf32) = saved
 
 
 class _Timer:

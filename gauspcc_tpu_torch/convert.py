@@ -1,12 +1,13 @@
-"""Carry a HAC or HAC++ state and GausPcgc codec weights from the JAX
-package into the port.
+"""Carry a HAC, HAC++ or TC-GS state and GausPcgc codec weights from the
+JAX package into the port.
 
 The JAX package saves a pytree as flat "a/b/c" keys
 (gauspcc_tpu/utils/checkpoint.py:17-33, `save_pytree`), e.g.
 "nets/mlp_color/fc0/w". `state_from_numpy` takes those keys, or the same
 tree as nested dicts of numpy arrays, and returns the port's state. Dense
 weights are stored [in, out] there and [out, in] in `nn.Linear`, so they
-are transposed; the tables keep their (xyz, xy, xz, yz) layout.
+are transposed; the tables keep their (xyz, xy, xz, yz) layout, TC-GS's
+planes their [3, C, R, R] and its autoencoder's convs their HWIO `w`.
 `codec_params_from_numpy` and `load_codec_npz` do the same for the codec's
 network (`codecs/gauspcgc/model.GausPcgcNet`), whose conv weights keep
 their [k^3, Cin, Cout] layout.
@@ -32,11 +33,16 @@ MLP_NAMES = ("mlp_opacity", "mlp_cov", "mlp_color", "mlp_grid", "mlp_deform")
 def state_from_numpy(tree: Mapping, cfg, device="cuda") -> hac.State:
     """The port's state from a JAX state given as numpy arrays: HAC's for a
     HACConfig, HAC++'s for a HACPlusConfig (its nets have channel_ctx in
-    place of mlp_deform, and a wider mlp_grid). The networks take every
-    "nets/" key and no other, or it raises."""
+    place of mlp_deform, and a wider mlp_grid), TC-GS's for a TCGSConfig
+    (planes, autoencoder and mlp_triplane in place of the tables, mlp_grid
+    and mlp_deform). The networks take every "nets/" key and no other, or
+    it raises."""
     from gauspcc_tpu_torch.models.hac_plus import model as hacp
+    from gauspcc_tpu_torch.models.tcgs import model as tcgs
 
     dev = resolve(device)
+    nets_of = {hacp.HACPlusConfig: hacp.HACPlusNets,
+               tcgs.TCGSConfig: tcgs.TCGSNets}
     flat = flatten(tree)
 
     def get(key: str, shape=None) -> torch.Tensor:
@@ -47,8 +53,7 @@ def state_from_numpy(tree: Mapping, cfg, device="cuda") -> hac.State:
             raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(shape)}")
         return torch.tensor(arr, device=dev)
 
-    nets = _fill(hacp.HACPlusNets(cfg) if isinstance(cfg, hacp.HACPlusConfig)
-                 else hac.HACNets(cfg), flat, "nets/")
+    nets = _fill(nets_of.get(type(cfg), hac.HACNets)(cfg), flat, "nets/")
     return {
         "anchors": {f: get(f"anchors/{f}").to(torch.float32)
                     for f in ANCHOR_FIELDS},

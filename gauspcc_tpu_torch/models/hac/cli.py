@@ -1,5 +1,5 @@
 """The scene command line (counterpart of gauspcc_tpu/models/hac/cli.py):
-train a scene of a family (`--model hac` or `hac_plus`) end to end, then
+train a scene of a family (`--model hac`, `hac_plus` or `tcgs`) end to end, then
 encode, decode and evaluate it; or encode, decode and evaluate a trained
 model directory again.
 
@@ -24,7 +24,7 @@ import dataclasses
 import json
 import os
 
-_LATER = "see ROADMAP.md Queue 1 item 7"
+_LATER = "see ROADMAP.md Queue 1 item 7; CAT-3DGS is item 7c"
 
 
 def _load_pcc(args, device):
@@ -58,9 +58,10 @@ def cmd_train(args):
         feat_dim=args.feat_dim, n_offsets=args.n_offsets,
         voxel_size=args.voxel_size, update_depth=args.update_depth,
         update_init_factor=args.update_init_factor,
-        update_hierachy_factor=args.update_hierachy_factor,
-        log2_hashmap_size=args.log2, log2_hashmap_size_2d=args.log2_2D,
-        n_features_per_level=args.n_features)
+        update_hierachy_factor=args.update_hierachy_factor)
+    if args.model in ("hac", "hac_plus"):  # the hash grids' families
+        kw.update(log2_hashmap_size=args.log2, log2_hashmap_size_2d=args.log2_2D,
+                  n_features_per_level=args.n_features)
     scene = Scene(args.source_path, eval_split=args.eval, images_dir=args.images,
                   white_background=args.white_background)
     if args.model == "hac_plus":
@@ -92,10 +93,8 @@ def cmd_eval(args):
         meta = json.load(f)
     # the family is the one the model was trained as, whatever --model says
     family = registry.get_family(meta.get("model", "hac"))
-    hac_kw = dict(meta["hac"])
-    for k in ("resolutions_3d", "resolutions_2d"):
-        hac_kw[k] = tuple(hac_kw[k])
-    cfg = family.make_config(**hac_kw)
+    cfg = family.make_config(**{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in meta["hac"].items()})
     scene = Scene(args.source_path or meta["source_path"], eval_split=True,
                   images_dir=args.images)
     state = convert.state_from_numpy(checkpoint.load_pytree(

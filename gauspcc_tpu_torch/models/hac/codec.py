@@ -218,6 +218,34 @@ def _encode_scaling_offsets(data: dict, ctx: dict, lo: int, hi: int,
         got["offset"].append(dec_off.reshape(b, k, 3))
 
 
+def _encode_batch(data: dict, ctx: dict, lo: int, hi: int, means: dict,
+                  out_dir: str, s: int, cfg, bits: dict,
+                  got: dict | None) -> None:
+    """Code batch s's features into feat_<s>.b under the context's
+    Gaussians, then its scalings and offsets (_encode_scaling_offsets)."""
+    b, fd = hi - lo, cfg.feat_dim
+    args = (ste_multistep(data["feat"][lo:hi], ctx["q_feat"], means["feat"]),
+            ctx["mean"], ctx["scale"], ctx["q_feat"].expand(b, fd))
+    bits["feat"] += ec.encode_gaussian(*args,
+                                       os.path.join(out_dir, f"feat_{s}.b"))
+    if got is not None:
+        got["feat"].append(ec.gaussian_values(*args).reshape(b, fd))
+    _encode_scaling_offsets(data, ctx, lo, hi, means, out_dir, s,
+                            cfg.n_offsets, bits, got)
+
+
+def _decode_batch(ctx: dict, masks01: torch.Tensor, out_dir: str, s: int,
+                  cfg):
+    """Inverse of _encode_batch: (feat [b, F], scaling [b, 6], offsets
+    [b, K, 3], 0 where masked off)."""
+    b, fd = masks01.shape[0], cfg.feat_dim
+    feat = ec.decode_gaussian(
+        ctx["mean"], ctx["scale"], ctx["q_feat"].expand(b, fd),
+        os.path.join(out_dir, f"feat_{s}.b")).reshape(b, fd)
+    return (feat, *_decode_scaling_offsets(ctx, masks01, out_dir, s,
+                                           cfg.n_offsets))
+
+
 def _decode_scaling_offsets(ctx: dict, masks01: torch.Tensor, out_dir: str,
                             s: int, k: int):
     """Inverse of _encode_scaling_offsets for one batch: (scaling [b, 6],
@@ -270,17 +298,9 @@ def conduct_encoding(state, cfg: hac.HACConfig, out_dir: str, pcc_params,
         got = {"feat": [], "scaling": [], "offset": []}
         for s in range((n + BATCH - 1) // BATCH):
             lo, hi = s * BATCH, min((s + 1) * BATCH, n)
-            b = hi - lo
             ctx = _padded_context(state, cfg, pos, lo, hi, clock)
-            args = (ste_multistep(data["feat"][lo:hi], ctx["q_feat"],
-                                  means["feat"]),
-                    ctx["mean"], ctx["scale"], ctx["q_feat"].expand(b, fd))
-            bits["feat"] += ec.encode_gaussian(
-                *args, os.path.join(out_dir, f"feat_{s}.b"))
-            if values is not None:
-                got["feat"].append(ec.gaussian_values(*args).reshape(b, fd))
-            _encode_scaling_offsets(data, ctx, lo, hi, means, out_dir, s, k,
-                                    bits, got if values is not None else None)
+            _encode_batch(data, ctx, lo, hi, means, out_dir, s, cfg, bits,
+                          got if values is not None else None)
 
         flat = hac.encoding_params_flat(state)
         bit_hash = ec.encode_binary((flat.reshape(-1) + 1.0) / 2.0,
@@ -313,11 +333,11 @@ def conduct_encoding(state, cfg: hac.HACConfig, out_dir: str, pcc_params,
 
 
 def _decoded_skeleton(state, cfg, out_dir: str, pcc_params, pcc_cfg, n: int):
-    """The decoder's first steps, shared by the families: the hash tables
-    (the context's source), then the masks, then the anchors, into a
-    decoded state of zero attributes on the device of `state`, whose
-    networks it copies with the decoded tables. Returns (the state, the
-    coded positions [n, 3], the masks [n, K, 1], the anchors' seconds)."""
+    """The decoder's first steps, HAC's and HAC++'s: the hash tables (the
+    context's source), then the masks, then the anchors, into a decoded
+    state of zero attributes on the device of `state`, whose networks it
+    copies with the decoded tables. Returns (the state, the coded positions
+    [n, 3], the masks [n, K, 1], the anchors' seconds)."""
     dev = _device(state)
     k = cfg.n_offsets
     spec = cfg.grid_spec
@@ -328,7 +348,22 @@ def _decoded_skeleton(state, cfg, out_dir: str, pcc_params, pcc_cfg, n: int):
         spec, (flat01 * 2.0 - 1.0).reshape(-1, cfg.n_features_per_level))
     masks01 = ec.decode_binary(n * k, os.path.join(out_dir, "masks.b"),
                                dev).reshape(n, k, 1)
+    nets = copy.deepcopy(state["nets"])
+    nets.tables = tables
+    dec_state, pos, anchors_s = _decoded_anchors(
+        state, cfg, out_dir, pcc_params, pcc_cfg, masks01, nets)
+    return dec_state, pos, masks01, anchors_s
 
+
+def _decoded_anchors(state, cfg, out_dir: str, pcc_params, pcc_cfg,
+                     masks01: torch.Tensor, nets):
+    """Decode the anchors of out_dir/xyz_pcc.bin into a decoded state on
+    the device of `state`: the anchors with zero attributes, the decoded
+    masks masks01 [n, K, 1], the networks `nets` and the bounds of
+    `state`. Returns (the state, the coded positions [n, 3], the anchors'
+    seconds)."""
+    dev = _device(state)
+    n, k = masks01.shape[0], cfg.n_offsets
     t0 = time.perf_counter()
     dec = pcc.decompress_point_cloud(os.path.join(out_dir, "xyz_pcc.bin"),
                                      pcc_params, config=pcc_cfg, device=dev)
@@ -340,9 +375,6 @@ def _decoded_skeleton(state, cfg, out_dir: str, pcc_params, pcc_cfg, n: int):
         raise ValueError(f"decoded {anchor_int.shape[0]} anchors, the "
                          f"stream holds {n}")
     pos = _positions(anchor_int, cfg, dev)
-
-    nets = copy.deepcopy(state["nets"])
-    nets.tables = tables
     cap = hac.bucket_capacity(n)
     rotation = torch.zeros((cap, 4), dtype=torch.float32, device=dev)
     rotation[:n, 0] = 1.0
@@ -361,7 +393,20 @@ def _decoded_skeleton(state, cfg, out_dir: str, pcc_params, pcc_cfg, n: int):
         "x_bound_min": state["x_bound_min"],
         "x_bound_max": state["x_bound_max"],
     }
-    return dec_state, pos, masks01, anchors_s
+    return dec_state, pos, anchors_s
+
+
+def _fill_attributes(dec_state, batches: list, cfg) -> None:
+    """Write the decoded batches' (feat, scaling, offsets) into the first
+    rows of the decoded state's anchors."""
+    if not batches:
+        return
+    a = dec_state["anchors"]
+    cap, k = dec_state["valid"].shape[0], cfg.n_offsets
+    feat, scaling, offset = (torch.cat(parts) for parts in zip(*batches))
+    a["anchor_feat"] = _pad(feat, (cap, cfg.feat_dim))
+    a["scaling"] = _pad(scaling, (cap, 6))
+    a["offset"] = _pad(offset, (cap, k, 3))
 
 
 def conduct_decoding(state, cfg: hac.HACConfig, out_dir: str, pcc_params,
@@ -377,31 +422,18 @@ def conduct_decoding(state, cfg: hac.HACConfig, out_dir: str, pcc_params,
     coder_s0 = coder.seconds
     with open(os.path.join(out_dir, "meta.json")) as f:
         meta = json.load(f)
-    n, k, fd = meta["n_anchors"], cfg.n_offsets, cfg.feat_dim
+    n = meta["n_anchors"]
     clock = _DeviceClock(dev)
     with torch.no_grad(), pcc._exact_gemms():
         dec_state, pos, masks01, anchors_s = _decoded_skeleton(
             state, cfg, out_dir, pcc_params, pcc_cfg, n)
-        cap = dec_state["valid"].shape[0]
 
-        feats, scalings, offsets = [], [], []
+        batches = []
         for s in range((n + BATCH - 1) // BATCH):
             lo, hi = s * BATCH, min((s + 1) * BATCH, n)
-            b = hi - lo
             ctx = _padded_context(dec_state, cfg, pos, lo, hi, clock)
-            feats.append(ec.decode_gaussian(
-                ctx["mean"], ctx["scale"], ctx["q_feat"].expand(b, fd),
-                os.path.join(out_dir, f"feat_{s}.b")).reshape(b, fd))
-            scal, off = _decode_scaling_offsets(ctx, masks01[lo:hi], out_dir,
-                                                s, k)
-            scalings.append(scal)
-            offsets.append(off)
-
-        a = dec_state["anchors"]
-        if n:
-            a["anchor_feat"] = _pad(torch.cat(feats), (cap, fd))
-            a["scaling"] = _pad(torch.cat(scalings), (cap, 6))
-            a["offset"] = _pad(torch.cat(offsets), (cap, k, 3))
+            batches.append(_decode_batch(ctx, masks01[lo:hi], out_dir, s, cfg))
+        _fill_attributes(dec_state, batches, cfg)
     _sync(dev)
     dec_time = time.perf_counter() - t_start
     if profile is not None:

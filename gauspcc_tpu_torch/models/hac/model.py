@@ -229,8 +229,8 @@ def encoding_params_flat(state: State, binarize: bool = True) -> torch.Tensor:
 
 def mlp_size_bits(state: State, digit: int = 32) -> int:
     """The networks' size in the scene's total: every `mlp*` net but the
-    deform one, `digit` bits a parameter (HAC++'s channel_ctx is not
-    counted, as in the JAX package)."""
+    deform one, `digit` bits a parameter (HAC++'s channel_ctx and TC-GS's
+    planes and autoencoder are not counted, as in the JAX package)."""
     total = sum(p.numel() for name, net in state["nets"].named_children()
                 if name.startswith("mlp") and "deform" not in name
                 for p in net.parameters())
@@ -259,7 +259,13 @@ def calc_interp_feat(state: State, cfg: HACConfig, x: torch.Tensor) -> torch.Ten
 
 def grid_mlp_split(state: State, cfg: HACConfig, feat_context: torch.Tensor):
     """mlp_grid output split into the 9 context heads."""
-    out = state["nets"].mlp_grid(feat_context)
+    return context_heads(state["nets"].mlp_grid(feat_context), cfg)
+
+
+def context_heads(out: torch.Tensor, cfg) -> dict:
+    """A context MLP's output split into HAC's 9 heads, the three Q
+    adjusters applied to cfg's base steps (TC-GS's mlp_triplane gives the
+    same heads)."""
     fd, k = cfg.feat_dim, cfg.n_offsets
     (mean, scale, mean_sc, scale_sc, mean_of, scale_of,
      q_feat_adj, q_sc_adj, q_of_adj) = torch.split(
@@ -308,9 +314,10 @@ def generate_neural_gaussians(state: State, cfg: HACConfig,
     visible_mask: [cap] bool from the prefilter, combined with validity.
     Eval (not `training`): unless `decoded`, the attributes are STE-quantised
     through the learned context exactly as the encoder will quantise them,
-    when the state's mlp_grid has HAC's width (`cfg.grid_out_dim`); another
-    family's state (HAC++'s wider mlp_grid) renders its float attributes,
-    as in the JAX package (model.py:343-349).
+    when the state has hash tables and an mlp_grid of HAC's width
+    (`cfg.grid_out_dim`); another family's state (HAC++'s wider mlp_grid,
+    TC-GS's triplane) renders its float attributes, as in the JAX package
+    (model.py:343-349).
     Training, by `phase`, the schedule stage the caller derives from the
     step: 0 no quantization proxy; 1 base-Q uniform noise; 2 context-adaptive
     noise and the rate estimate over the visible, mask-on anchors. `noise`
@@ -328,9 +335,10 @@ def generate_neural_gaussians(state: State, cfg: HACConfig,
     grid_scaling = get_scaling(state, decoded)
     binary_mask = get_mask(state, decoded)  # [cap, K, 1]
     rate = None
-    # HAC++ (and the later families) reuse this scaffold with a context of
-    # their own; only HAC's mlp_grid width gives HAC's heads
-    has_hac_ctx = nets.mlp_grid.fc1.out_features == cfg.grid_out_dim
+    # HAC++ and TC-GS reuse this scaffold with a context of their own: only
+    # HAC's tables and an mlp_grid of HAC's width give HAC's heads
+    has_hac_ctx = (hasattr(nets, "tables") and hasattr(nets, "mlp_grid")
+                   and nets.mlp_grid.fc1.out_features == cfg.grid_out_dim)
     if not training and not decoded and has_hac_ctx:
         ctx = grid_mlp_split(state, cfg, calc_interp_feat(state, cfg, anchor))
         feat_mean, scaling_mean, offset_mean = _live_means(state, cfg)

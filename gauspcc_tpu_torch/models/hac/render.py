@@ -58,6 +58,14 @@ def render_view(state, cfg: hac.HACConfig, cam: CameraArrays,
     ng, rate = hac.generate_neural_gaussians(
         state, cfg, cam.camera_center, visible, training=training,
         phase=phase, noise=noise, generator=generator, decoded=decoded)
+    return draw(ng, rate, visible, cam, rcfg, bg_color, means2d_extra)
+
+
+def draw(ng: hac.NeuralGaussians, rate, visible: torch.Tensor,
+         cam: CameraArrays, rcfg: raster.RasterConfig, bg_color: torch.Tensor,
+         means2d_extra=None) -> dict:
+    """Rasterize the neural Gaussians `ng` into render_view's dict (every
+    family's renders end here)."""
     img, radii = raster.rasterize(
         means3d=ng.xyz, colors=ng.color, opacities=ng.opacity,
         scales=ng.scaling, rotations=ng.rot, viewmatrix=cam.viewmatrix,
@@ -95,8 +103,28 @@ def training_loss(params, rest, cfg: hac.HACConfig, cam: CameraArrays,
 def objective(state, cfg, gt: torch.Tensor, out: dict, lmbda: float,
               lambda_dssim: float = 0.2):
     """The loss and aux of a training render `out` (render_view's dict)
-    against the ground truth `gt`; shared by the families whose objective
-    is HAC's with their own rate terms (HAC++)."""
+    against the ground truth `gt`: the image terms, and with the render's
+    rate terms lmbda (bits per parameter + the hash tables' bits over the
+    parameter count) + 5e-4 mean(sigmoid(mask)); shared by the families
+    whose objective is HAC's with their own rate terms (HAC++)."""
+    loss, aux = image_objective(gt, out, lambda_dssim)
+    rate = out["rate"]
+    if rate is not None:
+        flat = hac.encoding_params_flat(state)
+        _, bit_hash = entropy.binary_size_bits((flat + 1.0) / 2.0)
+        n_valid = torch.clamp_min(state["valid"].to(torch.float32).sum(), 1.0)
+        denom = n_valid * (cfg.feat_dim + 6 + 3 * cfg.n_offsets)
+        loss = loss + lmbda * (rate["bit_per_param"] + bit_hash / denom)
+        loss = loss + 5e-4 * torch.sigmoid(state["anchors"]["mask"]).mean()
+        aux["bit_per_param"] = rate["bit_per_param"]
+    return loss, aux
+
+
+def image_objective(gt: torch.Tensor, out: dict, lambda_dssim: float = 0.2):
+    """The image terms of a training render `out` against `gt`: (1 -
+    lambda_dssim) L1 + lambda_dssim (1 - SSIM) + 0.01 times the scaling
+    regularizer; and the aux, with bit_per_param 0 (every family adds its
+    own rate terms to both)."""
     img = out["render"]
     l1 = img_lib.l1_loss(img, gt)
     ssim_v = img_lib.ssim(img, gt)
@@ -109,16 +137,6 @@ def objective(state, cfg, gt: torch.Tensor, out: dict, lmbda: float,
 
     loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (1.0 - ssim_v)
     loss = loss + 0.01 * scaling_reg
-
-    rate = out["rate"]
-    if rate is not None:
-        flat = hac.encoding_params_flat(state)
-        _, bit_hash = entropy.binary_size_bits((flat + 1.0) / 2.0)
-        n_valid = torch.clamp_min(state["valid"].to(torch.float32).sum(), 1.0)
-        denom = n_valid * (cfg.feat_dim + 6 + 3 * cfg.n_offsets)
-        loss = loss + lmbda * (rate["bit_per_param"] + bit_hash / denom)
-        loss = loss + 5e-4 * torch.sigmoid(state["anchors"]["mask"]).mean()
-
     aux = {
         "l1": l1,
         "ssim": ssim_v,
@@ -127,7 +145,6 @@ def objective(state, cfg, gt: torch.Tensor, out: dict, lmbda: float,
         "visible_anchor": out["visible_anchor"],
         "neural_opacity": ng.neural_opacity,
         "g_valid": ng.valid,
-        "bit_per_param": rate["bit_per_param"] if rate else torch.zeros(
-            (), device=img.device),
+        "bit_per_param": torch.zeros((), device=img.device),
     }
     return loss, aux

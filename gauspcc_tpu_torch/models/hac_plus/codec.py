@@ -163,9 +163,8 @@ def conduct_decoding(state, cfg: hacp.HACPlusConfig, out_dir: str, pcc_params,
     with torch.no_grad(), pcc._exact_gemms():
         dec_state, pos, masks01, anchors_s = hac_codec._decoded_skeleton(
             state, base, out_dir, pcc_params, pcc_cfg, n)
-        cap = dec_state["valid"].shape[0]
 
-        feats, scalings, offsets = [], [], []
+        batches = []
         for s in range((n + BATCH - 1) // BATCH):
             lo, hi = s * BATCH, min((s + 1) * BATCH, n)
             b = hi - lo
@@ -180,17 +179,9 @@ def conduct_decoding(state, cfg: hacp.HACPlusConfig, out_dir: str, pcc_params,
                 feat[:, cols] = ec.decode_gaussian_mixed(
                     *mix, q_feat[:, cols],
                     os.path.join(out_dir, f"feat_{s}_{cc}.b")).reshape(b, c)
-            feats.append(feat)
-            scal, off = hac_codec._decode_scaling_offsets(
-                ctx, masks01[lo:hi], out_dir, s, k)
-            scalings.append(scal)
-            offsets.append(off)
-
-        a = dec_state["anchors"]
-        if n:
-            a["anchor_feat"] = hac_codec._pad(torch.cat(feats), (cap, fd))
-            a["scaling"] = hac_codec._pad(torch.cat(scalings), (cap, 6))
-            a["offset"] = hac_codec._pad(torch.cat(offsets), (cap, k, 3))
+            batches.append((feat, *hac_codec._decode_scaling_offsets(
+                ctx, masks01[lo:hi], out_dir, s, k)))
+        hac_codec._fill_attributes(dec_state, batches, cfg)
     hac_codec._sync(dev)
     dec_time = time.perf_counter() - t_start
     if profile is not None:

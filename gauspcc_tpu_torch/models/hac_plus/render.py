@@ -103,11 +103,6 @@ def training_loss(params, rest, cfg: hacp.HACPlusConfig,
     ng, rate = generate_neural_gaussians(
         state, cfg, cam.camera_center, visible, training=True, phase=phase,
         noise=noise, generator=generator)
-    img, radii = raster.rasterize(
-        means3d=ng.xyz, colors=ng.color, opacities=ng.opacity,
-        scales=ng.scaling, rotations=ng.rot, viewmatrix=cam.viewmatrix,
-        bg_color=bg_color, cfg=rcfg, valid=ng.valid,
-        means2d_extra=means2d_extra)
-    out = {"render": img, "radii": radii, "gaussians": ng,
-           "visible_anchor": visible, "rate": rate}
+    out = hac_render.draw(ng, rate, visible, cam, rcfg, bg_color,
+                          means2d_extra)
     return hac_render.objective(state, cfg, cam.image, out, lmbda, lambda_dssim)

@@ -3,9 +3,9 @@ gauspcc_tpu/models/registry.py).
 
 A family is a small descriptor: its config type, state init, training
 objective, phase schedule and scene codec, and optional hooks for phase 2
-(`extra_init`) and per-phase parameter freezes (`grad_mask`). HAC and
-HAC++ are ported; TC-GS and CAT-3DGS resolve to an error naming their
-item of ROADMAP.md Queue 1.
+(`extra_init`) and per-phase parameter freezes (`grad_mask`). HAC, HAC++
+and TC-GS are ported; CAT-3DGS resolves to an error naming its item of
+ROADMAP.md Queue 1.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ class Family:
     grad_mask: Callable | None = None
 
 
-_LATER = {"tcgs": "7b", "cat3dgs": "7c"}
+_LATER = {"cat3dgs": "7c"}
 
 
 def get_family(name: str) -> Family:
@@ -50,6 +50,12 @@ def get_family(name: str) -> Family:
 
         return Family("hac_plus", model.HACPlusConfig, model.init_state,
                       render.training_loss, t.phase_of_step,
+                      codec.conduct_encoding, codec.conduct_decoding)
+    if name == "tcgs":
+        from gauspcc_tpu_torch.models.tcgs import codec, model, render
+
+        return Family("tcgs", model.TCGSConfig, model.init_state,
+                      render.training_loss, render.phase_of_step,
                       codec.conduct_encoding, codec.conduct_decoding)
     if name in _LATER:
         raise NotImplementedError(

@@ -34,6 +34,8 @@ from gauspcc_tpu_torch.codecs.gauspcgc import codec, model
 from gauspcc_tpu_torch.core import cdf
 from gauspcc_tpu_torch.ops import hostmap, sibconv, sparse
 
+from test_torch_native_libs import ensure_jax_native_libs
+
 R5 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                   "model", "gauspcgc_r5", "best_model.npz")
 SMALL = model.NetConfig(channels=16, kernel_size=3)  # tests/test_gauspcgc.py:11
@@ -43,6 +45,9 @@ J_FULL_F32 = jmodel.NetConfig(dtype="f32")
 CONV_ATOL = 1e-5
 NET_ATOL = 2e-5
 BPP_ATOL = 0.01
+
+
+ensure_jax_native_libs()  # before any test here loads one
 
 
 def _cloud(rng, n, extent=64, offset=(0, 0, 0)):

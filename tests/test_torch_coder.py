@@ -24,6 +24,11 @@ from gauspcc_tpu_torch.core import cdf
 from gauspcc_tpu_torch.ops import coder
 from gauspcc_tpu_torch.ops import entropy_coding as ec
 
+from test_torch_native_libs import ensure_jax_native_libs
+
+
+ensure_jax_native_libs()  # before any test here loads one
+
 
 def _cdf_case(seed, n, lp):
     """Seeded uint16 CDF rows (the JAX package's normalization) and symbols

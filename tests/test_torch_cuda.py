@@ -734,3 +734,60 @@ def test_hac_plus_scene_roundtrip_on_the_card(cuda_device, tmp_path):
     for name, key in (("scaling", "scaling"), ("offset", "offset")):
         assert torch.equal(d[key][:m], values[name]), name
     assert sizes["total"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knn", [False, True])
+def test_tcgs_scene_roundtrip_on_the_card(cuda_device, tmp_path, knn):
+    """A small seeded TC-GS state (the widths of tests/test_tcgs.py, in
+    repeat and in knn mode) through its conduct_encoding and
+    conduct_decoding on the card, with seeded codec weights at
+    NetConfig(16, 3): anchors, masks, the f16 latent, the planes
+    reconstructed from it and every decoded attribute equal to what the
+    encoder coded, through both rANS kernels."""
+    from gauspcc_tpu_torch.codecs.gauspcgc import model
+    from gauspcc_tpu_torch.models.hac import codec as hac_codec
+    from gauspcc_tpu_torch.models.hac import model as hac
+    from gauspcc_tpu_torch.models.tcgs import codec as tcgs_codec
+    from gauspcc_tpu_torch.models.tcgs import model as tcgs
+    from gauspcc_tpu_torch.ops import rans
+    cfg = tcgs.TCGSConfig(feat_dim=8, n_offsets=3, voxel_size=0.05, tri_feat=4,
+                          tri_res=16, tri_samples=2, ae_compressed=4,
+                          knn_sampling=knn)
+    rng = np.random.default_rng(0)
+    pts = hac.voxelize_points((rng.random((4000, 3)) * 2 - 1).astype(np.float32),
+                              cfg.voxel_size)
+    state = hac.update_anchor_bound(tcgs.init_state(cfg, pts, rng,
+                                                    device=cuda_device))
+    n = pts.shape[0]
+    a = state["anchors"]
+    for name, mu, sd in (("anchor_feat", 0, 0.5), ("offset", 0, 0.3),
+                         ("mask", 1.0, 2.0)):
+        a[name][:n] = torch.from_numpy(rng.normal(mu, sd, tuple(a[name][:n].shape))
+                                       .astype(np.float32)).to(cuda_device)
+    pcfg = model.NetConfig(channels=16, kernel_size=3)
+    net = model.GausPcgcNet(pcfg)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    net = net.to(cuda_device)
+    enc, dec_launches = rans.encode_launches, rans.decode_launches
+    values = {}
+    sizes, _ = tcgs_codec.conduct_encoding(state, cfg, str(tmp_path), net, pcfg,
+                                           values=values)
+    dec, _ = tcgs_codec.conduct_decoding(state, cfg, str(tmp_path), net, pcfg)
+    assert rans.encode_launches > enc and rans.decode_launches > dec_launches
+    data = hac_codec._gather_sorted_attributes(state, cfg.as_hac())
+    m = data["anchor_int"].shape[0]
+    assert m > tcgs_codec.BATCH and int(dec["valid"].sum()) == m
+    d = dec["anchors"]
+    np.testing.assert_array_equal(
+        d["anchor"][:m].cpu().numpy(),
+        data["anchor_int"].astype(np.float32) * cfg.voxel_size)
+    assert torch.equal(d["mask"][:m], data["mask"])
+    assert torch.equal(dec["nets"].planes, values["planes"])
+    for name, key in (("feat", "anchor_feat"), ("scaling", "scaling"),
+                      ("offset", "offset")):
+        assert torch.equal(d[key][:m], values[name]), name
+    assert sizes["triplane"] == values["latent"].numel() * 16

@@ -39,6 +39,12 @@ from gauspcc_tpu_torch.models.hac import codec, model as hac
 from gauspcc_tpu_torch.ops import entropy_coding as ec, sparse
 from gauspcc_tpu_torch.utils import checkpoint
 
+from test_torch_native_libs import ensure_jax_native_libs
+
+
+ensure_jax_native_libs()  # before any test here loads one
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R5 = os.path.join(REPO, "runs", "soak_hac_r5")
 SMALL = dict(feat_dim=8, n_offsets=3, voxel_size=0.05, resolutions_3d=(6, 10, 16),

@@ -155,7 +155,7 @@ def test_hac_cli_trains_and_evaluates_a_colmap_scene_on_cpu(tmp_path, small_code
 def test_cli_refuses_what_is_not_ported(tmp_path, small_codec):
     with pytest.raises(NotImplementedError, match="item 7"):
         cli.main(["train", "-s", str(tmp_path), "-m", str(tmp_path),
-                  "--model", "tcgs", "--device", "cpu"])
+                  "--model", "cat3dgs", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 7"):
         cli.main(["train", "-s", str(tmp_path), "-m", str(tmp_path), "--gui",
                   "--device", "cpu"])

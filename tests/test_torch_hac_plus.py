@@ -57,8 +57,13 @@ from gauspcc_tpu_torch.models.hac_plus import model as hacp
 from gauspcc_tpu_torch.models.hac_plus import render
 from gauspcc_tpu_torch.ops import entropy_coding as ec
 
+from test_torch_native_libs import ensure_jax_native_libs
+
 from test_torch_train import (GRAD_ATOL, GRAD_RTOL, LMBDA, LOSS_RTOL, camera,
                               jax_noise, raster_cfgs)
+
+ensure_jax_native_libs()  # before any test here loads one
+
 
 SMALL = dict(feat_dim=10, n_offsets=3, voxel_size=0.05,
              resolutions_3d=(6, 10, 16), resolutions_2d=(16, 32),

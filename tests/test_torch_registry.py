@@ -69,8 +69,22 @@ def test_registry_families_resolve():
 @pytest.mark.parametrize("name,item", [("tcgs", "item 7b"),
                                        ("cat3dgs", "item 7c")])
 def test_unported_families_name_their_roadmap_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        registry.get_family(name)
+    """CAT-3DGS raises naming its item; TC-GS, item 7b, is ported and
+    resolves, with the JAX registry's config fields and defaults, its own
+    phase schedule and no hooks."""
+    if name != "tcgs":
+        with pytest.raises(NotImplementedError, match=item):
+            registry.get_family(name)
+        return
+    fam, jfam = registry.get_family(name), jregistry.get_family(name)
+    assert fam.name == name and callable(fam.training_loss)
+    assert fam.extra_init is None and fam.grad_mask is None
+    assert fam.make_config._fields == jfam.make_config._fields
+    assert fam.make_config()._asdict() == jfam.make_config()._asdict()
+    assert [fam.phase_of_step(s) for s in (3000, 3001, 10001, 15001)] == [
+        jfam.phase_of_step(s) for s in (3000, 3001, 10001, 15001)] == [0, 1, 2, 3]
+    cfg = fam.make_config()
+    assert (cfg.ctx_dim, cfg.grid_out_dim) == (195, 175)
 
 
 def test_train_scene_hac_plus_codes_decodes_and_evaluates(tmp_path, small_codec):
