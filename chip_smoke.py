@@ -98,6 +98,29 @@ non-zero exit and no result line:
           one decoded frame checked against the plain blend;
           codec_delta_db printed, not held (a TC-GS float eval renders
           unquantised attributes, as the JAX package's does)
+  cat3dgs CAT-3DGS (`soak.train(model="cat3dgs")`) on the same scene at the
+          full CATConfig width (feat_dim 50 in chcm slices (25, 25), 10
+          offsets, one-channel planes at 64, 128 and 256, four 16-wide ARM
+          layers a plane group, mlp_attr 9 -> 100 -> 125, mlp_chcm[0] 25
+          -> 100 -> 50), 600 steps as the train phase runs HAC (the soak's
+          schedule stops at phase 2, as the JAX package's does), with the
+          same checks, set_pca_frame once (the LOF's kept count printed),
+          the planes, mlp_attr and mlp_chcm moved and the ARMs not; the
+          nine planes' phase-2 rate timed (forward, and forward with
+          backward, CUDA events) beside its bound; then on a copy, from
+          zeroed Adam moments, 20 steps at each of phases 3, 4 and 5
+          through the family's train step: phase 3 moves only the ARMs and
+          its loss is the planes' rate, phase 4 everything but the planes,
+          phase 5 everything; its scene stream encoded twice (the same
+          sizes; mlps exactly 1,124,320 bits and arm_q.bin 13,680 bytes,
+          as the JAX r5 record), split into anchors, the triplane coder,
+          the context and the host coder, beside the other families'
+          sizes; decoded in a fresh process (--decode-scene) with every
+          value exact, the nine integer planes and each feature slice too,
+          K5 and K1 launches counted and one decoded frame checked against
+          the plain blend; codec_delta_db printed, not held (a CAT-3DGS
+          float eval renders unquantised attributes, as the JAX package's
+          does)
   reference  the whole slice at small widths on a 64x64 scene, on the card
           and through the port's CPU path, compared: ground truth, eval
           renders, and 3 training steps at phase 0
@@ -141,9 +164,11 @@ tables and on every random case; each of the finest level's stages is
 timed in turns (baseline, kernel, kernel, baseline) beside the kernels.
 
 Then one JSON line per the port's kernels (launches, error, times, bound;
-`launches_hac_plus` and `launches_tcgs`, each kernel's launches on the
-HAC++ and the TC-GS path: training's for the blend kernels, TC-GS's 600
-steps and 50 at phase 3, the scene encode's and decode's for rANS) and,
+`launches_hac_plus`, `launches_tcgs` and `launches_cat3dgs`, each
+kernel's launches on the HAC++, the TC-GS and the CAT-3DGS path:
+training's for the blend kernels, TC-GS's 600 steps and 50 at phase 3,
+CAT-3DGS's 600 and 20 at each of phases 3, 4 and 5, the scene encode's
+and decode's for rANS) and,
 last, {"ok": true, "device": {...}}. Nothing is written into the tree
 except the builds under gauspcc_tpu_torch/build/ (gitignored); the codecs'
 streams, the handed-off state and the decoded points go to temporary
@@ -153,8 +178,8 @@ With --decode BIN --out NPY it only decodes BIN with the r5 weights, twice
 (the two must agree), saves the first decode's points to NPY and prints one
 JSON line with the decode times, the per-level profile and the launches.
 With --decode-scene DIR it only decodes and evaluates the scene (of any
-family) that the scene codec, the hac_plus or the tcgs phase handed off in
-DIR and prints one JSON line.
+family) that the scene codec, the hac_plus, the tcgs or the cat3dgs phase
+handed off in DIR and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -184,6 +209,10 @@ from gauspcc_tpu_torch.core import cdf
 from gauspcc_tpu_torch.core.quant import ste_multistep
 from gauspcc_tpu_torch.fields import triplane as tri
 from gauspcc_tpu_torch.models import registry
+from gauspcc_tpu_torch.models.cat3dgs import codec as cat_codec
+from gauspcc_tpu_torch.models.cat3dgs import field as cat_field
+from gauspcc_tpu_torch.models.cat3dgs import model as cat
+from gauspcc_tpu_torch.models.cat3dgs import render as cat_render
 from gauspcc_tpu_torch.models.hac import codec as hac_codec
 from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.models.hac import pipeline
@@ -269,6 +298,18 @@ SCENE_DELTA_DB = 0.01
 TCGS_PHASE3_STEPS = 50
 TCGS_MLP_BITS = 1_636_320
 TCGS_LATENT_BITS = 6_144
+# cat3dgs phase: the steps at each of phases 3, 4 and 5 after the soak's 600
+# (its schedule stops at phase 2, as the JAX package's does), and the sizes
+# CATConfig's full width must give, as the JAX r5 record
+# (runs/soak_cat3dgs_r5) has them
+CAT_LATE_STEPS = 20
+CAT_MLP_BITS = 1_124_320
+CAT_ARM_BYTES = 13_680
+# a plane pixel's ARM: 12 -> 16, 3 x (16 -> 16 + residual), 16 -> 2, in
+# multiply-adds, and the rate's fp32 operations after it (clip, exp, two
+# Laplace CDFs with their expm1, the difference, floor and log2)
+ARM_MACS_PER_PIXEL = 12 * 16 + 3 * 16 * 16 + 16 * 2
+ARM_RATE_OPS_PER_PIXEL = 30
 
 
 def log(msg: str) -> None:
@@ -1364,10 +1405,12 @@ def decode_in_fresh_process(tmp: str, model: str, state, cfg, scene, values,
     if hasattr(state["nets"], "tables"):
         extra["hash"] = (hac.encoding_params_flat(state).detach().cpu().numpy()
                          .astype(np.int8))
+    for k, v in values.items():  # a list (CAT-3DGS's planes) one per entry
+        for i, t in (enumerate(v) if isinstance(v, list) else ((None, v),)):
+            extra[k if i is None else f"{k}_{i}"] = t.detach().cpu().numpy()
     np.savez(Path(tmp) / "expect.npz",
              anchor=data["anchor_int"].astype(np.float32) * cfg.voxel_size,
-             mask=data["mask"].cpu().numpy(), **extra,
-             **{k: v.detach().cpu().numpy() for k, v in values.items()})
+             mask=data["mask"].cpu().numpy(), **extra)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                            "--decode-scene", tmp],
@@ -1853,6 +1896,327 @@ def tcgs_phase(dev, scene, serve_psnr: float, hac_sizes: dict,
         f"a limit: the JAX package's float eval of a TC-GS state does not "
         f"quantise); size {sizes['total'] / hac_codec.BIT2MB:.4f} MB")
     return {"tile_blend": fwd + fwd3, "tile_blend_backward": bwd + bwd3,
+            "rans_encode": enc_launches, "rans_decode": dec["rans_decode"]}, sizes
+
+
+def plane_rate_ms(field) -> tuple[float, float, Counter, float, str]:
+    """CUDA-event ms (mean of 10 back-to-back runs) of the phase-2 rate of
+    every plane (the planes with seeded noise, each through its group's
+    ARM): forward, and forward with the backward to the planes, the gains
+    and the ARMs; the forward's host syncs; and the bound of the forward:
+    the larger of its bytes (the planes and the noise read, once each)
+    over the memory rate and its fp32 operations over the fp32 peak."""
+    gen = torch.Generator(device=field.gains.device).manual_seed(SEED)
+    noise = cat_field.plane_noise(field, gen)
+    leaves = [*field.scales, field.gains, *field.arms.parameters()]
+
+    def forward():
+        return cat_field.field_rate_bits(
+            field, cat_field.quantized_planes(field, noise))
+
+    with torch.no_grad():
+        fwd = cuda_ms(forward, 10)
+        syncs = host_syncs(forward)
+
+    def forward_backward():
+        with torch.enable_grad():
+            torch.autograd.grad(forward(), leaves)
+
+    pixels = sum(p.numel() for p in field.scales)
+    n_bytes = 2 * 4 * pixels
+    ops = pixels * (2 * ARM_MACS_PER_PIXEL + ARM_RATE_OPS_PER_PIXEL)
+    byte_s, op_s = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    by = "bytes" if byte_s >= op_s else "operations"
+    return fwd, cuda_ms(forward_backward, 10), syncs, max(byte_s, op_s) * 1e3, (
+        f"{by}: {pixels} plane pixels, {n_bytes} B, {ops} fp32 ops")
+
+
+@torch.no_grad()
+def cat_quantisation_diagnostics(state, cfg, scene) -> None:
+    """What separates CAT-3DGS's float eval from its decoded one: the
+    quantisation steps the hyperprior gives the valid anchors from the
+    integer planes the stream carries, beside the attributes' spread and
+    the share of features that round to their window's centre; and the
+    held-out PSNR of the state with its attributes quantised as the codec
+    quantises them, all three or one at a time."""
+    a = state["anchors"]
+    valid = state["valid"]
+    hyper = cat.hyper_split(state, cfg, hac.get_anchor(state, cfg.as_hac()),
+                            cat_codec.coded_planes(state))
+    scaling = hac.get_scaling(state)
+    feat_mean = a["anchor_feat"][valid].mean()
+    quantised = {
+        "anchor_feat": ste_multistep(a["anchor_feat"], hyper["q_feat"], feat_mean),
+        "scaling": torch.log(torch.clamp_min(ste_multistep(
+            scaling, hyper["q_scaling"], scaling[valid].mean()), 1e-9)),
+        "offset": ste_multistep(a["offset"], hyper["q_offsets"][:, None, :],
+                                a["offset"][valid].mean())}
+    feat_q = quantised["anchor_feat"][valid]
+    log("  at the valid anchors: " + ", ".join(
+        f"{q} mean {float(hyper[q][valid].mean()):.5g}"
+        for q in ("q_feat", "q_scaling", "q_offsets"))
+        + f"; features std {float(a['anchor_feat'][valid].std()):.5g}, "
+        f"{float((feat_q == 0).float().mean()):.4f} of them quantised to 0; "
+        f"scaling std {float(scaling[valid].std()):.5g}, offsets std "
+        f"{float(a['offset'][valid].std()):.5g}")
+    psnr = {}
+    for which in ("all", *quantised):
+        fields = quantised if which == "all" else {which: quantised[which]}
+        st = dict(state, anchors=dict(a, **fields))
+        psnr[which] = pipeline.evaluate(st, cfg, scene.test_cameras,
+                                        max_k=EVAL_K,
+                                        white_background=True)["psnr"]
+    log("  held-out PSNR with the attributes quantised as the codec "
+        "quantises them: " + ", ".join(f"{k} {v:.4f} dB" for k, v in psnr.items()))
+
+
+def cat3dgs_phase(dev, scene, serve_psnr: float, others: dict) -> dict:
+    """CAT-3DGS on the soak scene at the full CATConfig width: train
+    through the soak's schedule (phases 0-2, the PCA frame fitted once on
+    entering phase 2), then on a copy CAT_LATE_STEPS steps at each of
+    phases 3, 4 and 5 through the family's train step; check both; encode
+    twice, decode and evaluate in a fresh process, evaluate the float
+    state. `others`: the other families' encoded sizes in this run.
+    Returns the path's launches of each kernel."""
+    family = registry.get_family("cat3dgs")
+    fits = []
+
+    def counted_fit(state, cfg):  # the family's hook, counted
+        valid = state["valid"].cpu().numpy()
+        pts = state["anchors"]["anchor"].detach().cpu().numpy()[valid]
+        fits.append((pts.shape[0], int(cat_field.lof_inliers(pts).sum())))
+        return fit(state, cfg)
+
+    # soak.train resolves the family itself: its hook is the module's
+    fit, cat.set_pca_frame = cat.set_pca_frame, counted_fit
+    tile_blend.launches = 0
+    tile_blend.backward_launches = 0
+    t0 = time.perf_counter()
+    try:
+        state, cfg, opt, res = soak.train(
+            scene, TRAIN_STEPS, model="cat3dgs", voxel_size=VOXEL_SIZE,
+            white_background=True, log=lambda m: log(f"  {m}"), log_every=100,
+            device=dev, **TRAIN_DENSIFY)
+        torch.cuda.synchronize()
+    finally:
+        cat.set_pca_frame = fit
+    wall = time.perf_counter() - t0
+    fwd, bwd = tile_blend.launches, tile_blend.backward_launches
+    nets = state["nets"]
+    field = nets.field
+    log(f"  CATConfig: feat_dim {cfg.feat_dim} in chcm slices "
+        f"{cfg.chcm_slices}, {cfg.n_offsets} offsets, planes "
+        + ", ".join(str(tuple(p.shape)) for p in field.scales)
+        + f", four {cfg.field.layers_arm[0]}-wide ARM layers a plane group, "
+        f"mlp_attr {cfg.ctx_dim} -> {2 * cfg.feat_dim} -> {cfg.grid_out_dim}, "
+        f"mlp_chcm[0] {cfg.chcm_slices[0]} -> {2 * cfg.feat_dim} -> "
+        f"{2 * cfg.chcm_slices[1]}")
+    log(f"  {TRAIN_STEPS} steps in {wall:.3f} s ({wall / TRAIN_STEPS * 1e3:.3f} "
+        f"ms a step, densification, cap checks and the PCA fit included); "
+        f"tile_blend launches {fwd}, backward launches {bwd}")
+    if fwd == 0 or bwd == 0:
+        raise RuntimeError("CAT-3DGS training did not launch both blend kernels")
+    training_report(res)
+    if res["history"]["phase"].max() != 2:
+        raise RuntimeError("the soak's schedule did not stop at phase 2")
+    log(f"  set_pca_frame calls {len(fits)}: " + ", ".join(
+        f"{n} anchors, the LOF kept {kept}" for n, kept in fits)
+        + "; frame: mean " + ", ".join(f"{v:.4f}" for v in field.pca_mean.tolist())
+        + ", std " + ", ".join(f"{v:.4f}" for v in field.pca_std.tolist())
+        + ", gains " + ", ".join(f"{v:.4f}" for v in field.gains.tolist()))
+    if len(fits) != 1:
+        raise RuntimeError(f"set_pca_frame ran {len(fits)} times, not once")
+    # the planes, the field's frame, mlp_attr and mlp_chcm have no gradient
+    # before phase 2 (their objective is the rate's); phase 2 freezes the ARMs
+    init = cat.CATNets(cfg).init_seeded(np.random.default_rng(SEED))
+
+    def change(prefix: str) -> float:
+        mine = dict(nets.named_parameters())
+        return max(float((mine[n].detach().cpu() - p.detach()).abs().max())
+                   for n, p in init.named_parameters() if n.startswith(prefix))
+
+    changes = {part: change(part) for part in (
+        "field.scales", "field.arms", "field.gains", "mlp_attr", "mlp_chcm")}
+    log("  largest change from the seeded init after the soak: " + ", ".join(
+        f"{k} {v:.4e}" for k, v in changes.items()))
+    if not all(changes[k] > 0 for k in ("field.scales", "mlp_attr", "mlp_chcm")):
+        raise RuntimeError("phase 2 did not train the planes, mlp_attr and "
+                           "mlp_chcm")
+    if changes["field.arms"] != 0:
+        raise RuntimeError("the ARMs moved in the soak (phase 2 freezes them)")
+    trained = pipeline.evaluate(state, cfg, scene.test_cameras, max_k=EVAL_K,
+                                white_background=True)
+    log(f"  held-out PSNR {trained['psnr']:.3f} dB trained (float attributes, "
+        f"as the JAX package renders a CAT-3DGS state), {serve_psnr:.3f} dB "
+        f"untrained (serve phase); K={trained['eval_k']} D={trained['eval_d']}")
+    if not trained["psnr"] > serve_psnr:
+        raise RuntimeError("CAT-3DGS training did not raise the held-out PSNR")
+    rate_fwd, rate_both, syncs, rate_bound, rate_detail = plane_rate_ms(field)
+    log(f"  phase-2 rate of the {3 * len(field.scales)} planes (the ARMs over "
+        f"every pixel's 12-tap context): forward {rate_fwd:.4f} ms, forward "
+        f"and backward {rate_both:.4f} ms (CUDA events, mean of 10 "
+        f"back-to-back runs); forward's host syncs {sum(syncs.values())}; "
+        f"bound {rate_bound:.5f} ms ({rate_detail})")
+
+    # phases 3, 4 and 5 on a copy, from zeroed Adam moments: a group that
+    # grad_mask freezes gets zero gradients, and only moments carried from
+    # earlier steps would move it (as in the JAX package)
+    work = copy.deepcopy(state)
+    rcfg = res["rcfg"]
+    optimizer = hac_train.make_optimizer(opt, scene.cameras_extent)
+    step_fn = hac_train.make_train_step(cfg, rcfg, optimizer, opt,
+                                        loss_fn=family.training_loss,
+                                        grad_mask=family.grad_mask,
+                                        white_background=True)
+    params, rest = hac.split_state(work)
+    leaves = hac_train.param_leaves(params)
+    zeros = optimizer.init(leaves)
+    box = copy.deepcopy({"opt": dict(res["opt_state"], mu=zeros["mu"],
+                                     nu=zeros["nu"]), "stats": res["stats"]})
+    cams = [hac_render.CameraArrays.from_camera(c, dev, with_image=True)
+            for c in scene.train_cameras]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    turn = [0]
+
+    def one_step(phase):
+        cam = cams[turn[0] % len(cams)]
+        turn[0] += 1
+        _, box["opt"], box["stats"], m = step_fn(
+            params, rest, box["opt"], box["stats"], cam, phase=phase,
+            generator=gen)
+        return m
+
+    late_fwd = late_bwd = 0
+    for phase, moves in ((3, lambda n: n.startswith("nets/field/arms/")),
+                         (4, lambda n: not n.startswith("nets/field/scales/")),
+                         (5, lambda n: True)):
+        before = {n: t.detach().clone() for n, t in leaves.items()}
+        # the loss of phase 3 is the planes' rate alone: the same noise
+        # through the objective and through the rate
+        noise = (*(torch.rand(shape, generator=gen, device=dev) for shape in (
+            params["anchors"]["anchor_feat"].shape, (rest["valid"].shape[0], 6),
+            params["anchors"]["offset"].shape)),
+            cat_field.plane_noise(params["nets"].field, gen))
+        with torch.no_grad():
+            loss, _ = family.training_loss(
+                params, rest, cfg, cams[0], rcfg, torch.ones(3, device=dev),
+                phase, noise, None, opt.lmbda)
+            _, rate, planes_rate = cat_render.rate_gaussians(
+                hac.merge_state(params, rest), cfg, cams[0].camera_center,
+                hac_render.prefilter_voxel(hac.merge_state(params, rest),
+                                           cfg.as_hac(), cams[0], rcfg),
+                noise, None, None)
+        tile_blend.launches = 0
+        tile_blend.backward_launches = 0
+        t0 = time.perf_counter()
+        metrics = [one_step(phase) for _ in range(CAT_LATE_STEPS)]
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t0
+        late_fwd += tile_blend.launches
+        late_bwd += tile_blend.backward_launches
+        losses = [float(m["loss"]) for m in metrics]
+        moved = {n: float((t.detach() - before[n]).abs().max())
+                 for n, t in leaves.items()}
+        wrong = [n for n, v in moved.items() if (v > 0) != moves(n)]
+        log(f"  phase {phase}: {CAT_LATE_STEPS} steps in {p_wall:.3f} s, loss "
+            f"first {losses[0]:.5f} last {losses[-1]:.5f}, bits per parameter "
+            f"last {float(metrics[-1]['bit_per_param']):.4f}; with one seeded "
+            f"draw the objective {float(loss):.6f}, the rate "
+            f"{float(rate):.6f}, the planes' share {float(planes_rate):.6f}; "
+            f"leaves moved {sum(v > 0 for v in moved.values())} of "
+            f"{len(moved)}; tile_blend launches {tile_blend.launches}, "
+            f"backward {tile_blend.backward_launches}")
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"phase {phase}'s loss is not finite")
+        if wrong:
+            raise RuntimeError(f"phase {phase} moved a frozen leaf or left "
+                               f"one it trains: {wrong[:5]}")
+        if phase == 3 and not float(loss) == float(planes_rate):
+            raise RuntimeError("phase 3's loss is not the planes' rate")
+        if tile_blend.launches == 0:
+            raise RuntimeError(f"phase {phase} did not launch the blend kernel")
+    # where a phase-2 step's time goes (after the checks: these steps leave
+    # moments behind)
+    walls = sorted(wall_ms(lambda: one_step(2), 5))
+    busy, n_dev, top = device_profile(lambda: one_step(2))
+    idle = (f"idle share {1 - busy / walls[2]:.4f} of the median wall clock"
+            if n_dev else "idle share not measured")
+    log(f"  a phase-2 step: {walls[2]:.4f} ms (host wall clock with a sync at "
+        f"each end, median of 5; min {walls[0]:.4f}, max {walls[-1]:.4f}); "
+        f"under torch.profiler {n_dev} device activities, device busy "
+        f"{busy:.4f} ms, {idle}")
+    for name, n, ms in top:
+        log(f"    {ms:9.4f} ms  x{n:<4d} {name[:100]}")
+    del work, params, rest, box, leaves, zeros
+
+    pcc_cfg = pcgc_model.NetConfig()
+    net = convert.load_codec_npz(SCENE_CODEC_WEIGHTS, pcc_cfg, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        bs_dir = str(Path(tmp) / "bitstreams")
+        t0 = time.perf_counter()
+        first, _ = cat_codec.conduct_encoding(state, cfg, bs_dir, net, pcc_cfg)
+        log(f"  first encode (set-up included): {time.perf_counter() - t0:.3f} s")
+        values, prof = {}, {}
+        rans.encode_launches = 0
+        sizes, _ = cat_codec.conduct_encoding(state, cfg, bs_dir, net, pcc_cfg,
+                                              values=values, profile=prof)
+        enc_launches = rans.encode_launches
+        if sizes != first:
+            raise RuntimeError(f"two encodes of one state differ: {first} vs "
+                               f"{sizes}")
+        arm_bytes = (Path(bs_dir) / "arm_q.bin").stat().st_size
+        n = values["feat"].shape[0]
+        batches = (n + cat_codec.BATCH - 1) // cat_codec.BATCH
+        rest_s = (prof["total_s"] - prof["anchors_s"] - prof["triplane_s"]
+                  - prof["coder_s"])
+        log(f"  encode: {prof['total_s']:.4f} s wall, {n} anchors: anchors "
+            f"(GausPcgc) {prof['anchors_s']:.4f} s, triplane coder "
+            f"{prof['triplane_s']:.4f} s (host: the fixed-point ARM and its "
+            f"coder, {3 * len(values['planes'])} planes), context "
+            f"{prof['context_ms']:.3f} ms (CUDA events, {batches} batches of "
+            f"{cat_codec.BATCH}, {len(cfg.chcm_slices) * batches} feature "
+            f"streams), host coder {prof['coder_s']:.4f} s (host wall clock), "
+            f"the rest {rest_s:.4f} s; rans_encode launches {enc_launches}; "
+            f"arm_q.bin {arm_bytes} B")
+        log("  encoded sizes in MB, CAT-3DGS (" + ", ".join(others)
+            + " in this run): " + ", ".join(
+                f"{k} {v / hac_codec.BIT2MB:.4f} (" + ", ".join(
+                    f"{o[k] / hac_codec.BIT2MB:.4f}" if k in o else "-"
+                    for o in others.values()) + ")" for k, v in sizes.items()))
+        if enc_launches == 0:
+            raise RuntimeError("the CAT-3DGS encode did not launch the rans "
+                               "encode kernel")
+        if (sizes["mlps"], arm_bytes) != (CAT_MLP_BITS, CAT_ARM_BYTES):
+            raise RuntimeError(f"mlps {sizes['mlps']} bits and arm_q.bin "
+                               f"{arm_bytes} B, not {CAT_MLP_BITS} and "
+                               f"{CAT_ARM_BYTES}")
+        data = hac_codec._gather_sorted_attributes(state, cfg.as_hac())
+        dec, child_s = decode_in_fresh_process(tmp, "cat3dgs", state, cfg, scene,
+                                               values, data)
+    dp = dec["profile"]
+    log(f"  decode in a fresh process ({child_s:.3f} s with start-up): first "
+        f"{dec['first_s']:.4f} s; second {dp['total_s']:.4f} s wall: anchors "
+        f"(GausPcgc) {dp['anchors_s']:.4f} s, triplane coder "
+        f"{dp['triplane_s']:.4f} s (host), context {dp['context_ms']:.3f} ms "
+        f"(CUDA events), host coder {dp['coder_s']:.4f} s; rans_decode "
+        f"launches {dec['rans_decode']}; exact: {', '.join(dec['exact'])}")
+    log(f"  decoded eval: tile_blend launches {dec['tile_blend']}, K="
+        f"{dec['eval_k']} D={dec['eval_d']}, ms/view "
+        f"{', '.join(f'{m:.3f}' for m in dec['ms'])}; one decoded frame, "
+        f"kernel vs plain max |diff| {dec['frame_err']:.3e}")
+    if dec["rans_decode"] == 0 or dec["tile_blend"] == 0:
+        raise RuntimeError("the CAT-3DGS decode did not launch the rans decode "
+                           "kernel, or its eval the tile_blend kernel")
+    float_res = pipeline.evaluate(state, cfg, scene.test_cameras, max_k=EVAL_K,
+                                  white_background=True)
+    log(f"  PSNR decoded {dec['psnr']:.4f} dB (fresh process), float "
+        f"{float_res['psnr']:.4f} dB (unquantised attributes, this process): "
+        f"codec_delta_db {float_res['psnr'] - dec['psnr']:+.5f} (not held to "
+        f"a limit: the JAX package's float eval of a CAT-3DGS state does not "
+        f"quantise; its r5 record has +1.29 dB); size "
+        f"{sizes['total'] / hac_codec.BIT2MB:.4f} MB")
+    cat_quantisation_diagnostics(state, cfg, scene)
+    return {"tile_blend": fwd + late_fwd, "tile_blend_backward": bwd + late_bwd,
             "rans_encode": enc_launches, "rans_decode": dec["rans_decode"]}
 
 
@@ -1895,6 +2259,9 @@ def decode_scene_main(tmp: str, device="cuda") -> int:
         got["latent"] = torch.from_numpy(np.load(
             Path(bs_dir) / tcgs_codec.LATENT_FILE)["latent"])
         got["planes"] = dec["nets"].planes
+    if hasattr(dec["nets"], "field"):  # CAT-3DGS: the integer planes
+        for i, planes in enumerate(cat_field.quantized_planes(dec["nets"].field)):
+            got[f"planes_{i}"] = planes
     checked = [f"{name} {tuple(t.shape)}" for name, t in got.items()]
     for name, t in got.items():
         if not np.array_equal(t.detach().cpu().numpy(), want[name]):
@@ -1906,6 +2273,12 @@ def decode_scene_main(tmp: str, device="cuda") -> int:
             if not np.array_equal(feat[:, cols], want["feat"][:, cols]):
                 raise RuntimeError(f"decoded feature chunk {cc} differs")
             checked.append(f"feat chunk {cc}")
+    if hasattr(cfg, "chcm_slices"):
+        feat = got["feat"].cpu().numpy()
+        for i, cols in enumerate(cat_codec._slices(cfg)):
+            if not np.array_equal(feat[:, cols], want["feat"][:, cols]):
+                raise RuntimeError(f"decoded feature slice {i} differs")
+            checked.append(f"feat slice {i}")
     if int(dec["valid"].sum()) != n:
         raise RuntimeError("the decoded state holds another anchor count")
     with open(Path(tmp) / "cams.pkl", "rb") as f:
@@ -1961,8 +2334,8 @@ def main() -> int:
                         help="with --decode: where to save the decoded points")
     parser.add_argument("--decode-scene", metavar="DIR", default=None,
                         help="only decode and evaluate the scene handed off "
-                        "in DIR (the scene codec, hac_plus and tcgs phases "
-                        "run this in a fresh process)")
+                        "in DIR (the scene codec, hac_plus, tcgs and cat3dgs "
+                        "phases run this in a fresh process)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2426,7 +2799,12 @@ def main() -> int:
                                                    hac_sizes)
 
     with Phase("tcgs"):
-        tcgs_launches = tcgs_phase(dev, scene, serve_psnr, hac_sizes, hacp_sizes)
+        tcgs_launches, tcgs_sizes = tcgs_phase(dev, scene, serve_psnr, hac_sizes,
+                                               hacp_sizes)
+
+    with Phase("cat3dgs"):
+        cat_launches = cat3dgs_phase(dev, scene, serve_psnr, {
+            "hac": hac_sizes, "hac_plus": hacp_sizes, "tcgs": tcgs_sizes})
 
     with Phase("reference"):
         # the whole slice on the card against the port's CPU path (plain
@@ -2502,6 +2880,7 @@ def main() -> int:
     for row in codec_rows:
         row["launches_hac_plus"] = hacp_launches[row["name"]]
         row["launches_tcgs"] = tcgs_launches[row["name"]]
+        row["launches_cat3dgs"] = cat_launches[row["name"]]
     log(json.dumps({"kernels": [{
         "name": "tile_blend",
         "route": "cuda",
@@ -2510,6 +2889,7 @@ def main() -> int:
         "launches": launches,
         "launches_hac_plus": hacp_launches["tile_blend"],
         "launches_tcgs": tcgs_launches["tile_blend"],
+        "launches_cat3dgs": cat_launches["tile_blend"],
         "max_abs_err": frame_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2524,6 +2904,7 @@ def main() -> int:
         "launches": bwd_launches,
         "launches_hac_plus": hacp_launches["tile_blend_backward"],
         "launches_tcgs": tcgs_launches["tile_blend_backward"],
+        "launches_cat3dgs": cat_launches["tile_blend_backward"],
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

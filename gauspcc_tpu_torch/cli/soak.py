@@ -1,9 +1,9 @@
 """Scene-scale soak (own copy of gauspcc_tpu/cli/soak.py:37-130, the
 "textured" kind, and :139-246): clustered coloured Gaussians rendered from
 orbit cameras with the port's rasterizer as ground truth, plus seed points
-for the anchors; `train` trains a family (HAC, HAC++ or TC-GS) on it, and
-`main` runs the whole pipeline, train -> estimate -> encode -> decode ->
-evaluate, and writes soak_summary.json.
+for the anchors; `train` trains a family (HAC, HAC++, TC-GS or CAT-3DGS)
+on it, and `main` runs the whole pipeline, train -> estimate -> encode ->
+decode -> evaluate, and writes soak_summary.json.
 
 The numpy RNG calls run in the same order as the JAX package's
 build_scene, so one seed gives the same Gaussians, cameras and seed points
@@ -11,7 +11,7 @@ in both. Not ported (ROADMAP.md Queue 1 item 7): the heartbeat, the scalar
 logger, resume and the divergence abort.
 
     python -m gauspcc_tpu_torch.cli.soak --iters 30000 --out runs/soak_torch \
-        [--model hac|hac_plus|tcgs] [--pcc_ckpt model/gauspcgc/best_model.npz] \
+        [--model hac|hac_plus|tcgs|cat3dgs] [--pcc_ckpt model/gauspcgc/best_model.npz] \
         [--device cuda]
 """
 
@@ -149,9 +149,7 @@ def train(scene: SyntheticScene, iters: int, *, model: str = "hac",
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gauspcc-torch-soak")
     p.add_argument("--model", default="hac",
-                   choices=("hac", "hac_plus", "tcgs"),
-                   help="CAT-3DGS is not ported yet (ROADMAP.md Queue 1 "
-                        "item 7c)")
+                   choices=("hac", "hac_plus", "tcgs", "cat3dgs"))
     p.add_argument("--iters", type=int, default=30_000)
     p.add_argument("--hw", type=int, default=512)
     p.add_argument("--gt_gaussians", type=int, default=6000)

@@ -1,5 +1,5 @@
-"""Carry a HAC, HAC++ or TC-GS state and GausPcgc codec weights from the
-JAX package into the port.
+"""Carry a HAC, HAC++, TC-GS or CAT-3DGS state and GausPcgc codec weights
+from the JAX package into the port.
 
 The JAX package saves a pytree as flat "a/b/c" keys
 (gauspcc_tpu/utils/checkpoint.py:17-33, `save_pytree`), e.g.
@@ -7,7 +7,10 @@ The JAX package saves a pytree as flat "a/b/c" keys
 tree as nested dicts of numpy arrays, and returns the port's state. Dense
 weights are stored [in, out] there and [out, in] in `nn.Linear`, so they
 are transposed; the tables keep their (xyz, xy, xz, yz) layout, TC-GS's
-planes their [3, C, R, R] and its autoencoder's convs their HWIO `w`.
+planes their [3, C, R, R] and its autoencoder's convs their HWIO `w`;
+CAT-3DGS's field keeps JAX's keys (field/scales/<i>, field/arms/<group>/
+layers/<i>/<lin|res_lin>, field/gains, the PCA frame) and its mlp_chcm
+list its indices.
 `codec_params_from_numpy` and `load_codec_npz` do the same for the codec's
 network (`codecs/gauspcgc/model.GausPcgcNet`), whose conv weights keep
 their [k^3, Cin, Cout] layout.
@@ -35,14 +38,16 @@ def state_from_numpy(tree: Mapping, cfg, device="cuda") -> hac.State:
     HACConfig, HAC++'s for a HACPlusConfig (its nets have channel_ctx in
     place of mlp_deform, and a wider mlp_grid), TC-GS's for a TCGSConfig
     (planes, autoencoder and mlp_triplane in place of the tables, mlp_grid
-    and mlp_deform). The networks take every "nets/" key and no other, or
-    it raises."""
+    and mlp_deform), CAT-3DGS's for a CATConfig (field, mlp_attr, mlp_chcm
+    and the optional chcm heads in their place). The networks take every
+    "nets/" key and no other, or it raises."""
+    from gauspcc_tpu_torch.models.cat3dgs import model as cat
     from gauspcc_tpu_torch.models.hac_plus import model as hacp
     from gauspcc_tpu_torch.models.tcgs import model as tcgs
 
     dev = resolve(device)
     nets_of = {hacp.HACPlusConfig: hacp.HACPlusNets,
-               tcgs.TCGSConfig: tcgs.TCGSNets}
+               tcgs.TCGSConfig: tcgs.TCGSNets, cat.CATConfig: cat.CATNets}
     flat = flatten(tree)
 
     def get(key: str, shape=None) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Train-time entropy models: differentiable bit estimators (counterpart of
 gauspcc_tpu/core/entropy.py:20-94).
 
-What HAC's and HAC++'s training objectives reach: `low_bound` with its
-custom gradient, the quantized-Gaussian bits, the Gaussian-mixture bits and
-the binary-size estimate. The Bernoulli and factorized estimators come with
-TC-GS and CAT. All functions return per-element bits; callers sum and
+What the families' training objectives reach: `low_bound` with its
+custom gradient, the quantized-Gaussian bits (HAC, TC-GS, CAT-3DGS), the
+Gaussian-mixture bits (HAC++) and the binary-size estimate. No ported
+family reaches the Bernoulli and factorized estimators (ROADMAP.md Queue
+1 item 7h). All functions return per-element bits; callers sum and
 normalise.
 """
 

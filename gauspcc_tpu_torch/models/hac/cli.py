@@ -1,7 +1,7 @@
 """The scene command line (counterpart of gauspcc_tpu/models/hac/cli.py):
-train a scene of a family (`--model hac`, `hac_plus` or `tcgs`) end to end, then
-encode, decode and evaluate it; or encode, decode and evaluate a trained
-model directory again.
+train a scene of a family (`--model hac`, `hac_plus`, `tcgs` or `cat3dgs`)
+end to end, then encode, decode and evaluate it; or encode, decode and
+evaluate a trained model directory again.
 
   python -m gauspcc_tpu_torch.models.hac.cli train -s <scene_dir> \
       -m <model_dir> [--model hac_plus --voxel_size 0.001 --lmbda 0.004 \
@@ -13,8 +13,10 @@ model directory again.
 The anchors' codec comes from `--pcc_ckpt`, a GausPcgc `.npz` of the JAX
 package's keys (`convert.load_codec_npz`). cfg.json in the model directory
 records the family and its configuration for `eval`. HAC++ takes the tiny
-channel context on a Blender scene, as the JAX CLI does. Runs on the card
-unless `--device cpu` is given.
+channel context on a Blender scene, as the JAX CLI does; CAT-3DGS splits
+the features into two chcm slices of half `--feat_dim` each (the JAX
+config's (25, 25) at its default 50). Runs on the card unless `--device
+cpu` is given.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import dataclasses
 import json
 import os
 
-_LATER = "see ROADMAP.md Queue 1 item 7; CAT-3DGS is item 7c"
+_LATER = "see ROADMAP.md Queue 1 item 7"
 
 
 def _load_pcc(args, device):
@@ -66,6 +68,9 @@ def cmd_train(args):
                   white_background=args.white_background)
     if args.model == "hac_plus":
         kw["tiny_ctx"] = scene.is_blender
+    if args.model == "cat3dgs":
+        half = args.feat_dim // 2
+        kw["chcm_slices"] = (half, args.feat_dim - half)
     cfg = family.make_config(**kw)
     opt = hac_train.OptConfig(iterations=args.iterations, lmbda=args.lmbda)
     os.makedirs(args.model_path, exist_ok=True)

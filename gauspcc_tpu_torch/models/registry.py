@@ -3,9 +3,9 @@ gauspcc_tpu/models/registry.py).
 
 A family is a small descriptor: its config type, state init, training
 objective, phase schedule and scene codec, and optional hooks for phase 2
-(`extra_init`) and per-phase parameter freezes (`grad_mask`). HAC, HAC++
-and TC-GS are ported; CAT-3DGS resolves to an error naming its item of
-ROADMAP.md Queue 1.
+(`extra_init`) and per-phase parameter freezes (`grad_mask`): HAC, HAC++,
+TC-GS and CAT-3DGS, whose hooks fit its PCA frame on entering phase 2 and
+freeze its phases' groups.
 """
 
 from __future__ import annotations
@@ -33,9 +33,6 @@ class Family:
     grad_mask: Callable | None = None
 
 
-_LATER = {"cat3dgs": "7c"}
-
-
 def get_family(name: str) -> Family:
     if name == "hac":
         from gauspcc_tpu_torch.models.hac import codec, model, render
@@ -57,10 +54,14 @@ def get_family(name: str) -> Family:
         return Family("tcgs", model.TCGSConfig, model.init_state,
                       render.training_loss, render.phase_of_step,
                       codec.conduct_encoding, codec.conduct_decoding)
-    if name in _LATER:
-        raise NotImplementedError(
-            f"model family {name!r} is not ported yet (ROADMAP.md Queue 1 "
-            f"item {_LATER[name]})")
+    if name == "cat3dgs":
+        from gauspcc_tpu_torch.models.cat3dgs import codec, model, render
+
+        return Family("cat3dgs", model.CATConfig, model.init_state,
+                      render.training_loss, render.phase_of_step,
+                      codec.conduct_encoding, codec.conduct_decoding,
+                      extra_init=model.set_pca_frame,
+                      grad_mask=render.grad_mask)
     raise ValueError(f"unknown model family: {name!r} "
                      f"(choose {', '.join(FAMILIES)})")
 

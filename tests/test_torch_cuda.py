@@ -791,3 +791,65 @@ def test_tcgs_scene_roundtrip_on_the_card(cuda_device, tmp_path, knn):
                       ("offset", "offset")):
         assert torch.equal(d[key][:m], values[name]), name
     assert sizes["triplane"] == values["latent"].numel() * 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [False, True])
+def test_cat3dgs_scene_roundtrip_on_the_card(cuda_device, tmp_path, heads):
+    """A small seeded CAT-3DGS state (the widths of tests/test_cat3dgs.py,
+    with the chcm heads of the offsets and the scaling off and on, its PCA
+    frame fitted) through its conduct_encoding and conduct_decoding on the
+    card, with seeded codec weights at NetConfig(16, 3): anchors, masks,
+    the integer planes, each feature slice, scaling and offsets equal to
+    what the encoder coded, through both rANS kernels."""
+    from gauspcc_tpu_torch.codecs.gauspcgc import model
+    from gauspcc_tpu_torch.models.cat3dgs import codec as cat_codec
+    from gauspcc_tpu_torch.models.cat3dgs import field as cat_field
+    from gauspcc_tpu_torch.models.cat3dgs import model as cat
+    from gauspcc_tpu_torch.models.hac import codec as hac_codec
+    from gauspcc_tpu_torch.models.hac import model as hac
+    from gauspcc_tpu_torch.ops import rans
+    cfg = cat.CATConfig(feat_dim=8, n_offsets=3, voxel_size=0.05,
+                        chcm_slices=(4, 4), tri_feat=1, base_resolution=16,
+                        multiscale=(1, 2), chcm_for_offsets=heads,
+                        chcm_for_scaling=heads)
+    rng = np.random.default_rng(0)
+    pts = hac.voxelize_points((rng.random((4000, 3)) * 2 - 1).astype(np.float32),
+                              cfg.voxel_size)
+    state = cat.set_pca_frame(hac.update_anchor_bound(cat.init_state(
+        cfg, pts, rng, device=cuda_device)), cfg)
+    n = pts.shape[0]
+    a = state["anchors"]
+    for name, mu, sd in (("anchor_feat", 0, 0.5), ("offset", 0, 0.3),
+                         ("mask", 1.0, 2.0)):
+        a[name][:n] = torch.from_numpy(rng.normal(mu, sd, tuple(a[name][:n].shape))
+                                       .astype(np.float32)).to(cuda_device)
+    pcfg = model.NetConfig(channels=16, kernel_size=3)
+    net = model.GausPcgcNet(pcfg)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    net = net.to(cuda_device)
+    enc, dec_launches = rans.encode_launches, rans.decode_launches
+    values = {}
+    sizes, _ = cat_codec.conduct_encoding(state, cfg, str(tmp_path), net, pcfg,
+                                          values=values)
+    dec, _ = cat_codec.conduct_decoding(state, cfg, str(tmp_path), net, pcfg)
+    assert rans.encode_launches > enc and rans.decode_launches > dec_launches
+    data = hac_codec._gather_sorted_attributes(state, cfg.as_hac())
+    m = data["anchor_int"].shape[0]
+    assert m > cat_codec.BATCH and int(dec["valid"].sum()) == m
+    d = dec["anchors"]
+    np.testing.assert_array_equal(
+        d["anchor"][:m].cpu().numpy(),
+        data["anchor_int"].astype(np.float32) * cfg.voxel_size)
+    assert torch.equal(d["mask"][:m], data["mask"])
+    for got, want in zip(cat_field.quantized_planes(dec["nets"].field),
+                         values["planes"]):
+        assert torch.equal(got, want)
+    for i, cols in enumerate(cat_codec._slices(cfg)):
+        assert torch.equal(d["anchor_feat"][:m, cols], values["feat"][:, cols]), i
+    for name, key in (("scaling", "scaling"), ("offset", "offset")):
+        assert torch.equal(d[key][:m], values[name]), name
+    assert sizes["triplane"] > 3 * 4560 * 8

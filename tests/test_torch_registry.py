@@ -69,22 +69,30 @@ def test_registry_families_resolve():
 @pytest.mark.parametrize("name,item", [("tcgs", "item 7b"),
                                        ("cat3dgs", "item 7c")])
 def test_unported_families_name_their_roadmap_item(name, item):
-    """CAT-3DGS raises naming its item; TC-GS, item 7b, is ported and
-    resolves, with the JAX registry's config fields and defaults, its own
-    phase schedule and no hooks."""
-    if name != "tcgs":
-        with pytest.raises(NotImplementedError, match=item):
-            registry.get_family(name)
-        return
+    """The families of ROADMAP.md Queue 1 items 7b (TC-GS) and 7c
+    (CAT-3DGS) are ported: each resolves, with the JAX registry's config
+    fields and defaults and its phase schedule at the JAX boundaries;
+    TC-GS without hooks, CAT-3DGS with its PCA fit and its freezes."""
     fam, jfam = registry.get_family(name), jregistry.get_family(name)
     assert fam.name == name and callable(fam.training_loss)
-    assert fam.extra_init is None and fam.grad_mask is None
     assert fam.make_config._fields == jfam.make_config._fields
     assert fam.make_config()._asdict() == jfam.make_config()._asdict()
-    assert [fam.phase_of_step(s) for s in (3000, 3001, 10001, 15001)] == [
-        jfam.phase_of_step(s) for s in (3000, 3001, 10001, 15001)] == [0, 1, 2, 3]
     cfg = fam.make_config()
-    assert (cfg.ctx_dim, cfg.grid_out_dim) == (195, 175)
+    if name == "tcgs":
+        assert fam.extra_init is None and fam.grad_mask is None
+        assert [fam.phase_of_step(s) for s in (3000, 3001, 10001, 15001)] == [
+            jfam.phase_of_step(s) for s in (3000, 3001, 10001, 15001)] == [0, 1, 2, 3]
+        assert (cfg.ctx_dim, cfg.grid_out_dim) == (195, 175)
+        return
+    from gauspcc_tpu_torch.models.cat3dgs import model as cat
+    from gauspcc_tpu_torch.models.cat3dgs import render as cat_render
+
+    assert fam.extra_init is cat.set_pca_frame
+    assert fam.grad_mask is cat_render.grad_mask
+    edges = (3000, 3001, 10000, 10001, 15000, 15001, 16000, 16001, 19000, 19001)
+    assert [fam.phase_of_step(s) for s in edges] == [
+        jfam.phase_of_step(s) for s in edges] == [0, 1, 1, 2, 2, 3, 3, 4, 4, 5]
+    assert (cfg.ctx_dim, cfg.grid_out_dim, cfg.chcm_slices) == (9, 125, (25, 25))
 
 
 def test_train_scene_hac_plus_codes_decodes_and_evaluates(tmp_path, small_codec):
