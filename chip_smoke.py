@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (`gauspcc_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--baseline FILE] [--baseline-rans FILE]
-    python3 chip_smoke.py --decode BIN --out NPY
+    python3 chip_smoke.py --decode BIN --out NPY [--weights NPZ]
     python3 chip_smoke.py --decode-scene DIR
 
 Phases, each printed with its wall time; any failure ends the run with a
@@ -141,6 +141,24 @@ non-zero exit and no result line:
           floor: the same per-step arithmetic with every operand in
           registers (rans.encode_floor, rans.decode_floor at 3, 5 and 17
           columns), 1,280 steps a lane
+  codec_train  GausPcgc codec training at the full NetConfig(32, 5, bf16):
+          the corpus the JAX package's r5 codec trained on
+          (data/pcc_corpus_r4, kept off the card) regenerated by the port's
+          `synth` (seed 7, 48 clouds; seed 1234, 8 clouds), its points
+          summed against the tracked files' 8,485,509; the tracked r5
+          weights' teacher-forced val bpp (full-precision GEMMs) within
+          0.05 of the JAX record's 10.6988; `train.train` from init (seed
+          11) on <= 150,000-point KD patches for 150 steps, validating at
+          75 and 150 (and the init at 0), the val bpp at 150 below the
+          init's, the train bpp every 10 steps, the first step's seconds
+          and the peak memory; on one patch, its geometry's host time and
+          cached steps of a copy of the trained network by wall clock, by
+          CUDA events, for their host syncs and under torch.profiler, and
+          the finest level's forward and forward-and-backward; then the
+          trained best_model.npz, loaded through `convert` (JAX's keys),
+          codes val cloud 0 through K5 within [0.98, 1.1] x its
+          teacher-forced bits + 5,000 and a fresh process (--decode BIN
+          --weights NPZ) decodes it exactly
 
 With --baseline FILE, an earlier tile_blend.cu is built and run on the
 thin Gaussians at the cut (its values outside the tolerance are reported,
@@ -168,13 +186,15 @@ Then one JSON line per the port's kernels (launches, error, times, bound;
 kernel's launches on the HAC++, the TC-GS and the CAT-3DGS path:
 training's for the blend kernels, TC-GS's 600 steps and 50 at phase 3,
 CAT-3DGS's 600 and 20 at each of phases 3, 4 and 5, the scene encode's
-and decode's for rANS) and,
+and decode's for rANS; `launches_codec_train` for rANS, the trained
+weights' encode and decode of the held-out cloud) and,
 last, {"ok": true, "device": {...}}. Nothing is written into the tree
 except the builds under gauspcc_tpu_torch/build/ (gitignored); the codecs'
 streams, the handed-off state and the decoded points go to temporary
 directories.
 
-With --decode BIN --out NPY it only decodes BIN with the r5 weights, twice
+With --decode BIN --out NPY it only decodes BIN with the r5 weights (or
+the .npz given by --weights), twice
 (the two must agree), saves the first decode's points to NPY and prints one
 JSON line with the decode times, the per-level profile and the launches.
 With --decode-scene DIR it only decodes and evaluates the scene (of any
@@ -203,8 +223,11 @@ import torch
 
 from gauspcc_tpu_torch import convert, native
 from gauspcc_tpu_torch.cli import soak
+from gauspcc_tpu_torch.codecs.gauspcgc import cli as pcgc_cli
 from gauspcc_tpu_torch.codecs.gauspcgc import codec as pcgc_codec
+from gauspcc_tpu_torch.codecs.gauspcgc import data as pcgc_data
 from gauspcc_tpu_torch.codecs.gauspcgc import model as pcgc_model
+from gauspcc_tpu_torch.codecs.gauspcgc import train as pcgc_train
 from gauspcc_tpu_torch.core import cdf
 from gauspcc_tpu_torch.core.quant import ste_multistep
 from gauspcc_tpu_torch.fields import triplane as tri
@@ -222,9 +245,10 @@ from gauspcc_tpu_torch.models.hac_plus import codec as hacp_codec
 from gauspcc_tpu_torch.models.hac_plus import model as hacp
 from gauspcc_tpu_torch.models.tcgs import codec as tcgs_codec
 from gauspcc_tpu_torch.models.tcgs import model as tcgs
-from gauspcc_tpu_torch.ops import rans, sibconv, sparse
+from gauspcc_tpu_torch.ops import rans, sparse
 from gauspcc_tpu_torch.render import raster, tile_blend
 from gauspcc_tpu_torch.utils import checkpoint, image as img_lib
+from gauspcc_tpu_torch.utils.scalars import ScalarLogger
 
 SEED = 0
 # r5 soak settings (gauspcc_tpu/cli/soak.py:135-147) and eval caps (runs/soak_hac_r5)
@@ -284,6 +308,27 @@ CODEC_WEIGHTS = Path(__file__).resolve().parent / "model" / "gauspcgc_r5" / "bes
 # weights (BENCH_r05.json, TPU, bf16): a compression figure, not a time
 CODEC_BPP_JAX = 11.3381
 CODEC_BPP_TOL = 0.05
+# codec_train phase: the corpus the JAX package's r5 codec trained on
+# (data/pcc_corpus_r4, kept off the card), regenerated from its seeds: `cli
+# synth --kind mixed` with seed 7, 48 clouds (train/) and seed 1234, 8
+# clouds (val/); the tracked files hold 8,485,509 points together
+CORPUS_TRAIN = (7, 48)
+CORPUS_VAL = (1234, 8)
+CORPUS_POINTS = 8_485_509
+# the r5 weights' teacher-forced val bpp on those 8 clouds in the JAX
+# package's record (model/gauspcgc_r5/train.log, step 400, the lowest val
+# of the run, so the one best_model.npz was saved at; TPU, bf16): a
+# compression figure, not a time
+R5_VAL_BPP_JAX = 10.6988
+R5_VAL_BPP_TOL = 0.05
+# training from init (TrainConfig's seed 11, full width, its defaults but
+# the validation and logging cadence) for a smoke-length run
+CODEC_TRAIN_STEPS = 150
+CODEC_TRAIN_VAL_EVERY = 75
+CODEC_TRAIN_LOG_EVERY = 10
+# the coded size of a cloud against its teacher-forced bits, as
+# tests/test_gauspcgc.py:68 bounds it: [0.98 x, 1.1 x + 5,000]
+CODED_LOW, CODED_HIGH, CODED_SLACK = 0.98, 1.1, 5000
 # random tables for the rANS kernels: (capacity, valid positions)
 RANS_RANDOM_CASES = ((16384, 11_111), (16384, 0), (2048, 2047))
 # scene codec phase: the GausPcgc weights the r5 soak coded its anchors with
@@ -1067,13 +1112,13 @@ def rans_bytes(tables, n_valid: int, encode: bool, words_moved: int) -> int:
     return total
 
 
-def decode_main(bin_path: str, out_path: str) -> int:
+def decode_main(bin_path: str, out_path: str, weights: Path = CODEC_WEIGHTS) -> int:
     """--decode: decode `bin_path` in this fresh process on the card, twice
     (both must agree), save the first decode's points to `out_path` and
     print one JSON line with the times, the per-level profile of the second
     and its rANS decode launches."""
     dev = torch.device("cuda")
-    net = convert.load_codec_npz(CODEC_WEIGHTS, device=dev)
+    net = convert.load_codec_npz(weights, device=dev)
     t0 = time.perf_counter()
     first = pcgc_codec.decompress_point_cloud(bin_path, net, device=dev)
     first_s = time.perf_counter() - t0
@@ -1212,8 +1257,7 @@ def codec_phase(dev, baseline_rans: Path | None = None) -> list[dict]:
         flop = 2.0 * groups * k_dim * wm.shape[1]
         x = torch.randn((groups * 8, cfg.channels), generator=gen, device=dev
                         ).to(torch.bfloat16)
-        index = sibconv.gather_index(g.c_gmapT)
-        conv_ms = cuda_ms(lambda: net.target_resnet.conv(x, index, g.cmask8), 10)
+        conv_ms = cuda_ms(lambda: net.target_resnet.conv(x, g.c_map, g.cmask8), 10)
         del xg
     log(f"  finest level: {g.n_parents} parents, {g.n_child} children (ccap "
         f"{g.ccap}), conv at G = {groups} groups: the [G, {k_dim}] x [{k_dim}, "
@@ -1304,6 +1348,225 @@ def codec_phase(dev, baseline_rans: Path | None = None) -> list[dict]:
                  "plain_ms": dec_plain, "bound_ms": dec_bound,
                  "bound_by": "bytes", "library_ms": None})
     return rows
+
+
+def regenerate_corpus(root: Path) -> tuple[list[str], list[str]]:
+    """The r5 training corpus, written by the port's `synth` generator
+    under root/train and root/val; prints the host seconds and the
+    points, and checks their sum against the tracked files'."""
+    paths = {}
+    counts = {}
+    t0 = time.perf_counter()
+    for split, (seed, count) in (("train", CORPUS_TRAIN), ("val", CORPUS_VAL)):
+        (root / split).mkdir(parents=True)
+        paths[split], counts[split] = [], []
+        for i, (pts, _) in enumerate(pcgc_cli.synth_clouds(seed, count)):
+            paths[split].append(str(root / split / f"synth_{i:04d}.npy"))
+            np.save(paths[split][-1], pts)
+            counts[split].append(pts.shape[0])
+    total = sum(map(sum, counts.values()))
+    log(f"  corpus regenerated on the host in {time.perf_counter() - t0:.3f} s: "
+        f"train (seed {CORPUS_TRAIN[0]}) {len(counts['train'])} clouds "
+        f"{counts['train']}; val (seed {CORPUS_VAL[0]}) {len(counts['val'])} "
+        f"clouds {counts['val']}; {total} points in all (the tracked "
+        f"data/pcc_corpus_r4: {CORPUS_POINTS})")
+    if total != CORPUS_POINTS:
+        raise RuntimeError(f"the regenerated corpus holds {total} points, the "
+                           f"tracked one {CORPUS_POINTS}")
+    return paths["train"], paths["val"]
+
+
+def val_bpp(net, cfg, val) -> float:
+    """Teacher-forced bpp over a WholeCloudDataset, as the trainer
+    validates (one cloud's geometry on the card at a time)."""
+    bits = n = 0
+    for i in range(len(val)):
+        b, k = pcgc_train.cloud_bits(net, cfg, val.get(i))
+        bits, n = bits + b, n + k
+    return bits / n
+
+
+def training_records(model_dir: Path) -> tuple[list, list, float]:
+    """From the trainer's own records: (step, train bpp) and (step, val
+    bpp) from scalars.jsonl, and the first step's seconds from train.log."""
+    rows = [json.loads(line) for line in open(model_dir / "scalars.jsonl")]
+    train_bpp = [(r["step"], r["train/bpp"]) for r in rows if "train/bpp" in r]
+    vals = [(r["step"], r["val/bpp"]) for r in rows if "val/bpp" in r]
+    first = next(line for line in open(model_dir / "train.log")
+                 if "first step done" in line)
+    return train_bpp, vals, float(first.rsplit("(", 1)[1].split("s", 1)[0])
+
+
+def codec_train_phase(dev) -> dict[str, int]:
+    """GausPcgc codec training at full width on the regenerated r5 corpus:
+    the r5 weights' val bpp against JAX's record, 150 steps from init, a
+    cached step timed and profiled, then the trained weights coding a
+    held-out cloud through K5 and decoding it in a fresh process. Returns
+    the rANS kernels' launches of that coding."""
+    cfg = pcgc_model.NetConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        train_paths, val_paths = regenerate_corpus(root / "corpus")
+        val = pcgc_data.WholeCloudDataset(val_paths)
+
+        # the tracked r5 weights on the val clouds, beside the JAX record
+        r5 = convert.load_codec_npz(CODEC_WEIGHTS, cfg, device=dev)
+        t0 = time.perf_counter()
+        with pcgc_codec._exact_gemms():
+            r5_bpp = val_bpp(r5, cfg, val)
+        log(f"  r5 weights ({CODEC_WEIGHTS.name}): val bpp {r5_bpp:.4f} over "
+            f"{len(val)} clouds ({time.perf_counter() - t0:.3f} s, full-precision "
+            f"GEMMs) against the JAX package's record {R5_VAL_BPP_JAX} (limit "
+            f"+-{R5_VAL_BPP_TOL})")
+        if not abs(r5_bpp - R5_VAL_BPP_JAX) <= R5_VAL_BPP_TOL:
+            raise RuntimeError(f"r5 val bpp {r5_bpp:.4f} outside "
+                               f"{R5_VAL_BPP_JAX} +- {R5_VAL_BPP_TOL}")
+        del r5
+
+        # training from init
+        tcfg = pcgc_train.TrainConfig(model_dir=str(root / "model"),
+                                      val_interval=CODEC_TRAIN_VAL_EVERY,
+                                      log_interval=CODEC_TRAIN_LOG_EVERY)
+        init = pcgc_model.init_net(tcfg.net, tcfg.seed).to(dev)
+        t0 = time.perf_counter()
+        val0 = val_bpp(init, tcfg.net, val)
+        log(f"  init (seed {tcfg.seed}): val bpp {val0:.4f} "
+            f"({time.perf_counter() - t0:.3f} s); {tcfg}")
+        del init
+        t0 = time.perf_counter()
+        ds = pcgc_data.PatchDataset(train_paths, seed=tcfg.seed)
+        log(f"  PatchDataset: {len(ds)} clouds read in "
+            f"{time.perf_counter() - t0:.3f} s, patches of at most {ds.max_num} points")
+        scalars = ScalarLogger(tcfg.model_dir, use_tensorboard=False)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            net = pcgc_train.train(tcfg, ds, val, max_steps=CODEC_TRAIN_STEPS,
+                                   scalar_logger=scalars, device=dev)
+        finally:
+            scalars.close()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak_run = torch.cuda.max_memory_allocated()
+        train_bpp, vals, first_s = training_records(root / "model")
+        log(f"  {CODEC_TRAIN_STEPS} steps in {run_s:.3f} s (validations "
+            f"included), the first {first_s:.1f} s; peak device memory "
+            f"{peak_run / 2**30:.2f} GiB")
+        log("  train bpp: " + ", ".join(f"{k}: {v:.4f}" for k, v in train_bpp))
+        log(f"  val bpp: 0: {val0:.4f}, " + ", ".join(f"{k}: {v:.4f}" for k, v in vals))
+        if [k for k, _ in vals] != list(range(CODEC_TRAIN_VAL_EVERY,
+                                              CODEC_TRAIN_STEPS + 1,
+                                              CODEC_TRAIN_VAL_EVERY)):
+            raise RuntimeError(f"validations at {[k for k, _ in vals]}")
+        if not all(np.isfinite(v) for _, v in train_bpp + vals):
+            raise RuntimeError("a non-finite bpp")
+        if not vals[-1][1] < val0:
+            raise RuntimeError(f"val bpp after {CODEC_TRAIN_STEPS} steps "
+                               f"{vals[-1][1]:.4f} is not below the init's {val0:.4f}")
+
+        # one patch: its geometry on the host clock, then cached steps of a
+        # copy of the trained network (the run's weights stay as they are)
+        xyz = pcgc_data.quantize_cloud(
+            pcgc_data.kdtree_partition(ds.clouds[0], ds.max_num)[0])
+        geo_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prepared = pcgc_train.pyramid_batches_sib(xyz, dev)
+            torch.cuda.synchronize()
+            geo_ms.append((time.perf_counter() - t0) * 1e3)
+        batches, n_points = prepared
+        log(f"  one patch ({n_points} points, {len(batches)} coded levels, "
+            f"{pcgc_train._prepared_nbytes(prepared) / 2**20:.1f} MiB on the "
+            f"card): its geometry {', '.join(f'{t:.3f}' for t in geo_ms)} ms "
+            f"(host wall clock with a sync)")
+        work = copy.deepcopy(net)
+        opt = pcgc_train.make_optimizer(tcfg)
+        box = {"state": opt.init(dict(work.named_parameters()))}
+
+        def step():
+            box["state"], box["bpp"] = pcgc_train.train_step(
+                work, opt, box["state"], tcfg.net, None, prepared=prepared)
+
+        torch.cuda.reset_peak_memory_stats()
+        walls = wall_ms(step, 5)
+        peak_step = torch.cuda.max_memory_allocated()
+        ev_ms = cuda_ms(step, 5)
+        busy, n_act, top = device_profile(step)
+        wall = float(np.median(walls))
+        syncs = host_syncs(step)
+        log(f"  a cached step: {', '.join(f'{t:.3f}' for t in walls)} ms (host "
+            f"wall clock with a sync, median {wall:.3f}); {ev_ms:.3f} ms (CUDA "
+            f"events, mean of 5 back-to-back); peak device memory "
+            f"{peak_step / 2**30:.2f} GiB; bpp {box['bpp']:.4f}")
+        log(f"  one cached step under torch.profiler: {n_act} device activities, "
+            f"busy {busy:.3f} ms of a median wall clock of {wall:.3f} ms (idle "
+            f"share {1 - busy / wall:.4f}); host syncs "
+            f"{sum(syncs.values())}: {dict(syncs)}")
+        for name, count, ms in top:
+            log(f"    {ms:9.3f} ms  {count:5d}x  {name[:100]}")
+        fine = batches[-1]
+        groups = fine.c_maps.index.shape[0] // 27
+
+        def forward():
+            pcgc_train._batch_bits(work, tcfg.net, fine)
+
+        def forward_backward():
+            pcgc_train._batch_bits(work, tcfg.net, fine)[0].backward()
+
+        fwd_ms = cuda_ms(forward, 5)
+        torch.cuda.reset_peak_memory_stats()
+        fb_ms = cuda_ms(forward_backward, 5)
+        peak_fine = torch.cuda.max_memory_allocated()
+        work.zero_grad(set_to_none=True)
+        log(f"  the finest level ({int(fine.cmask.sum())} children, {groups} "
+            f"parent groups): forward {fwd_ms:.3f} ms, forward and backward "
+            f"{fb_ms:.3f} ms (CUDA events, mean of 5 back-to-back); peak device "
+            f"memory {peak_fine / 2**30:.2f} GiB")
+        del work, box, prepared, batches, fine
+
+        # the trained weights, through JAX's keys, code a held-out cloud
+        best = root / "model" / "best_model.npz"
+        trained = convert.load_codec_npz(best, cfg, device=dev)
+        cloud = val.get(0)
+        with pcgc_codec._exact_gemms():
+            tf_bits, n_cloud = pcgc_train.cloud_bits(trained, cfg, cloud)
+        path = str(root / "val0.bin")
+        rans.encode_launches = 0
+        out = pcgc_codec.compress_point_cloud(cloud, trained, path, config=cfg,
+                                              device=dev)
+        torch.cuda.synchronize()
+        enc_launches = rans.encode_launches
+        low, high = CODED_LOW * tf_bits, CODED_HIGH * tf_bits + CODED_SLACK
+        log(f"  val cloud 0 ({n_cloud} points) coded with the trained "
+            f"{best.name}: {out['file_size_bits']} bits, bpp {out['bpp']:.4f}, "
+            f"teacher-forced {tf_bits:.1f} bits ({tf_bits / n_cloud:.4f} bpp; "
+            f"limits {low:.1f} to {high:.1f}); encode {out['enc_time']:.3f} s, "
+            f"rans_encode launches {enc_launches}")
+        if not low <= out["file_size_bits"] <= high:
+            raise RuntimeError("the coded size is outside its teacher-forced bounds")
+        if enc_launches == 0:
+            raise RuntimeError("the encode did not launch the rans encode kernel")
+        out_npy = str(root / "val0.npy")
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--decode", path, "--out", out_npy,
+                               "--weights", str(best)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the decoding process failed (exit "
+                               f"{proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        dec = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = np.unique(np.load(out_npy).astype(np.int64), axis=0)
+        want = np.unique(cloud, axis=0)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise RuntimeError(f"lossy decode: {got.shape[0]} points of {want.shape[0]}")
+        log(f"  decoded in a fresh process with {best.name}: lossless, "
+            f"{dec['num_points']} points, {dec['dec_s']:.4f} s, rans_decode "
+            f"launches {dec['launches']}")
+        if dec["launches"] == 0:
+            raise RuntimeError("the decode did not launch the rans decode kernel")
+    return {"rans_encode": enc_launches, "rans_decode": dec["launches"]}
 
 
 def training_report(tres) -> None:
@@ -2332,6 +2595,9 @@ def main() -> int:
                         "codec phase runs this in a fresh process)")
     parser.add_argument("--out", metavar="NPY", default=None,
                         help="with --decode: where to save the decoded points")
+    parser.add_argument("--weights", metavar="NPZ", type=Path, default=CODEC_WEIGHTS,
+                        help="with --decode: the codec weights (the r5 ones by "
+                        "default; the codec_train phase passes its own)")
     parser.add_argument("--decode-scene", metavar="DIR", default=None,
                         help="only decode and evaluate the scene handed off "
                         "in DIR (the scene codec, hac_plus, tcgs and cat3dgs "
@@ -2341,7 +2607,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if opts.decode is not None:
-        return decode_main(opts.decode, opts.out)
+        return decode_main(opts.decode, opts.out, opts.weights)
     if opts.decode_scene is not None:
         return decode_scene_main(opts.decode_scene)
     dev = torch.device("cuda")
@@ -2877,10 +3143,14 @@ def main() -> int:
     with Phase("codec"):
         codec_rows = codec_phase(dev, opts.baseline_rans)
 
+    with Phase("codec_train"):
+        train_launches = codec_train_phase(dev)
+
     for row in codec_rows:
         row["launches_hac_plus"] = hacp_launches[row["name"]]
         row["launches_tcgs"] = tcgs_launches[row["name"]]
         row["launches_cat3dgs"] = cat_launches[row["name"]]
+        row["launches_codec_train"] = train_launches[row["name"]]
     log(json.dumps({"kernels": [{
         "name": "tile_blend",
         "route": "cuda",

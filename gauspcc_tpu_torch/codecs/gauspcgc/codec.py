@@ -41,7 +41,7 @@ from gauspcc_tpu_torch.ops import hostmap, rans, sibconv, sparse
 MAGIC = 0x47504354  # 'GPCT'
 VERSION_TORCH = 5  # the port's engine (the JAX package writes 2, 3 and 4)
 MIN_BASE_POINTS = 64
-_LATER = "see ROADMAP.md Queue 1 item 7"
+_LATER = "see ROADMAP.md Queue 1 item 7e"
 
 
 def _bucket(n: int, minimum: int = 256) -> int:
@@ -106,11 +106,13 @@ class _SibLevelGeometry:
     """Sibling-packed geometry of one pyramid level, on the codec's device.
 
     p_coords int [Np, 3] lex-sorted parents; p_occ int [Np] their
-    occupancy bytes. `parent_gmapT` is the previous level's child-cell map:
-    the groups of this level's parents are the previous level's parents
-    (every voxel has a child), so it is this level's parent-cell map."""
+    occupancy bytes. `parent` is the previous level's geometry: the groups
+    of this level's parents are the previous level's parents (every voxel
+    has a child), so its child-cell map is this level's parent-cell map.
+    Each map is kept as gmapT [G, 27] and as the `sibconv.GroupMap` the
+    network reads (`p_map`, `c_map`), converted once per level."""
 
-    def __init__(self, p_coords, p_occ, n_child: int, parent_gmapT=None):
+    def __init__(self, p_coords, p_occ, n_child: int, parent=None):
         dev = p_coords.device
         np_ = p_coords.shape[0]
         pcap = _bucket(np_)
@@ -143,11 +145,13 @@ class _SibLevelGeometry:
         bits = (p_occ[:, None] >> torch.arange(8, device=dev)[None, :]) & 1
         self.cmask8[: np_ * 8] = bits.bool().reshape(-1)
 
-        if parent_gmapT is not None and parent_gmapT.shape[0] == gpcap:
-            self.p_gmapT = parent_gmapT
+        if parent is not None and parent.c_gmapT.shape[0] == gpcap:
+            self.p_gmapT, self.p_map = parent.c_gmapT, parent.c_map
         else:
             self.p_gmapT = _gmap(groups, gpcap)
+            self.p_map = sibconv.GroupMap(self.p_gmapT)
         self.c_gmapT = _gmap(p_coords, pcap)
+        self.c_map = sibconv.GroupMap(self.c_gmapT)
 
 
 def _gmap(coords, cap):
@@ -155,14 +159,14 @@ def _gmap(coords, cap):
 
 
 def _context_sib(params, config, g: _SibLevelGeometry):
-    return net.sib_context(params, config, g.pocc, g.pmask, g.p_gmapT, g.ppos,
-                           g.c_gmapT, g.cmask8)
+    return net.sib_context(params, config, g.pocc, g.pmask, g.p_map, g.ppos,
+                           g.c_map, g.cmask8)
 
 
 def _stage_cdf_sib(params, stage, cf, g: _SibLevelGeometry, prev_lex):
     """One stage's CDF tables in lex (coded) order [ccap, Lp], from the
     packed features and the earlier symbols in coded order."""
-    probs = net.sib_stage_probs(params, stage, cf, g.c_gmapT, g.cmask8,
+    probs = net.sib_stage_probs(params, stage, cf, g.c_map, g.cmask8,
                                 prev_lex[g.inv])
     return cdf_lib.probs_to_cdf_int16(probs[g.cpos])
 
@@ -194,15 +198,13 @@ def _encode_levels_sib(levels, params, config: net.NetConfig, device,
                        profile: list | None = None):
     """Encoder core -> one packed stream per coded level."""
     pending = []
-    carry_gmap = None
+    g = None
     for depth in range(len(levels) - 1):
         timer = _Timer(device) if profile is not None else None
         p_coords = torch.as_tensor(levels[depth][0], device=device)
         p_occ = torch.as_tensor(levels[depth][1].astype(np.int64), device=device)
         c_coords, c_occ = levels[depth + 1]
-        g = _SibLevelGeometry(p_coords, p_occ, c_coords.shape[0],
-                              parent_gmapT=carry_gmap)
-        carry_gmap = g.c_gmapT
+        g = _SibLevelGeometry(p_coords, p_occ, c_coords.shape[0], parent=g)
         # the coded symbols are indexed by the lex-sorted children: they
         # must be the next level's coords
         if not torch.equal(g.child_coords[: g.n_child],
@@ -236,12 +238,11 @@ def _decode_levels_sib(base_coords, base_occ, payload: bytes, params,
     streams = bitstream.unpack_byte_streams(payload)
     p_coords = torch.as_tensor(base_coords.astype(np.int64), device=device)
     p_occ = torch.as_tensor(base_occ.astype(np.int64), device=device)
-    carry_gmap = None
+    g = None
     for stream in streams:
         timer = _Timer(device) if profile is not None else None
         n_child = int(_popcount(p_occ).sum())
-        g = _SibLevelGeometry(p_coords, p_occ, n_child, parent_gmapT=carry_gmap)
-        carry_gmap = g.c_gmapT
+        g = _SibLevelGeometry(p_coords, p_occ, n_child, parent=g)
         w_np, _ = rans.unpack_stream(stream, rans.word_capacity(g.ccap))
         if w_np.shape[0] != rans.lane_count(g.ccap):
             raise ValueError(f"corrupt stream: {w_np.shape[0]} lanes at a "

@@ -16,13 +16,26 @@ on an embedding of the bits coded before it:
 The conv stacks run in `NetConfig.compute_dtype` (bf16 by default) with
 the bias, relu and residual adds in that dtype; the heads run in float32,
 as in JAX. Every gather clamps its indices where the JAX package's does
-(JAX clamps out-of-range gathers, torch raises).
+(JAX clamps out-of-range gathers, torch raises), and is an `index_select`,
+whose backward is an `index_add_`: a table row read by a million voxels
+(the embeddings') is summed by atomics on CUDA, fast but in no fixed
+order, where indexing's sort-based backward serialises the duplicates
+(1.9 s of a 2.4 s step on an H100); on the CPU the sum is sequential.
+
+A group map argument is a `sibconv.GroupMap` (its gather rows and their
+flip, built once per level, as the trainer's and the codec's geometry keep
+them) or a group neighbor map [G, 27], converted on each call. The network trains
+through autograd: the sib convs' gradients are `sibconv`'s scatter-free
+backward; JAX rematerialises each conv stack (`jax.checkpoint`), which
+the port needs not, since each conv keeps only its input for the
+backward.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -60,11 +73,11 @@ class ConvStack(nn.Module):
         self.res0 = _ResNet(c, k)
         self.res1 = _ResNet(c, k)
 
-    def forward(self, x, index, slotmask):
-        h = torch.relu(self.conv(x, index, slotmask))
+    def forward(self, x, gm, slotmask):
+        h = torch.relu(self.conv(x, gm, slotmask))
         for r in (self.res0, self.res1):
-            h = torch.relu(h + r.conv1(torch.relu(r.conv0(h, index, slotmask)),
-                                       index, slotmask))
+            h = torch.relu(h + r.conv1(torch.relu(r.conv0(h, gm, slotmask)),
+                                       gm, slotmask))
         return h
 
 
@@ -76,8 +89,8 @@ class Spatial(nn.Module):
         self.conv0 = sibconv.SibConv(c, c, k)
         self.conv1 = sibconv.SibConv(c, c, k)
 
-    def forward(self, x, index, slotmask):
-        return self.conv1(torch.relu(self.conv0(x, index, slotmask)), index,
+    def forward(self, x, gm, slotmask):
+        return self.conv1(torch.relu(self.conv0(x, gm, slotmask)), gm,
                           slotmask)
 
 
@@ -115,6 +128,29 @@ class GausPcgcNet(nn.Module):
                         nn.Parameter(torch.zeros(STAGE_COND[s], c)))
 
 
+def init_net(config: NetConfig = NetConfig(), seed: int = 0) -> GausPcgcNet:
+    """A freshly initialised network, with the distributions of JAX's
+    `init_params` (model.py:108): embeddings N(0, 1); conv w and b
+    U(+-1/sqrt(Cin k^3)); dense w and b U(+-1/sqrt(fan_in)). Drawn on the
+    CPU from a torch generator seeded with `seed` (JAX's draws differ), so
+    every device starts from the same weights."""
+    net = GausPcgcNet(config)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "embedding" in name or name.startswith("cond_emb"):
+                p.copy_(torch.randn(p.shape, generator=gen))
+                continue
+            owner = net.get_submodule(name.rpartition(".")[0])
+            if isinstance(owner, sibconv.SibConv):
+                fan_in = owner.w.shape[0] * owner.w.shape[1]
+            else:  # nn.Linear: weight [out, in]
+                fan_in = owner.weight.shape[1]
+            bound = 1.0 / np.sqrt(fan_in)
+            p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)
+    return net
+
+
 def split_occupancy(occ: torch.Tensor):
     """Occupancy byte -> the 4 stage symbols (network_ue_4stage_conv.py:138-141)."""
     occ = occ.to(torch.int32)
@@ -139,17 +175,17 @@ def sib_context(net: GausPcgcNet, config: NetConfig, pocc_packed, pslotmask,
     p_gmapT int [Gp, 27]: the grandparent cells' neighbor map; parent_pos
     int [Pcap]: the packed row of parent i; c_gmapT int [Pcap, 27]: the
     parent cells' neighbor map; c_slotmask bool [Pcap*8]: the parents'
-    occupancy bits. (JAX's flipped maps feed only its backward.)"""
+    occupancy bits. The maps are `sibconv.GroupMap`s or [G, 27] maps."""
     dt = config.compute_dtype
-    pf = net.prior_embedding[_clamp_rows(pocc_packed, 256)]
+    pf = net.prior_embedding.index_select(0, _clamp_rows(pocc_packed, 256))
     pf = torch.where(pslotmask[:, None], pf, 0.0).to(dt)
-    pf = net.prior_resnet(pf, sibconv.gather_index(p_gmapT), pslotmask)
+    pf = net.prior_resnet(pf, sibconv.group_map(p_gmapT), pslotmask)
     pcap = parent_pos.shape[0]
-    pf_vox = pf[_clamp_rows(parent_pos, pf.shape[0])]  # [Pcap, C]
+    pf_vox = pf.index_select(0, _clamp_rows(parent_pos, pf.shape[0]))  # [Pcap, C]
     cf = (pf_vox[:, None, :] + net.target_embedding[None].to(dt)).reshape(
         pcap * 8, -1)
     cf = torch.where(c_slotmask[:, None], cf, 0).to(dt)
-    return net.target_resnet(cf, sibconv.gather_index(c_gmapT), c_slotmask)
+    return net.target_resnet(cf, sibconv.group_map(c_gmapT), c_slotmask)
 
 
 def sib_stage_probs(net: GausPcgcNet, stage: int, cf, c_gmapT, c_slotmask,
@@ -159,9 +195,10 @@ def sib_stage_probs(net: GausPcgcNet, stage: int, cf, c_gmapT, c_slotmask,
     f = cf
     if stage > 0:
         table = getattr(net, f"cond_emb_s{stage}")
-        cond = table[_clamp_rows(prev_packed, table.shape[0])].to(f.dtype)
+        cond = table.index_select(
+            0, _clamp_rows(prev_packed, table.shape[0])).to(f.dtype)
         f = f + torch.where(c_slotmask[:, None], cond, 0)
-    h = getattr(net, f"spatial_s{stage}")(f, sibconv.gather_index(c_gmapT),
+    h = getattr(net, f"spatial_s{stage}")(f, sibconv.group_map(c_gmapT),
                                          c_slotmask)
     return getattr(net, f"head_s{stage}")(h)
 
@@ -171,7 +208,9 @@ def level_bits_sib(net: GausPcgcNet, config: NetConfig, pocc_packed,
                    gt_packed):
     """Teacher-forced bits to code one level's children, the rate estimate
     the coded size is held against. gt_packed int [Pcap*8] = the child
-    occupancy bytes at (parent, octant). -> (total bits, valid children)."""
+    occupancy bytes at (parent, octant). -> (total bits, valid children).
+    Differentiable in every weight of `net` (the training objective)."""
+    p_gmapT, c_gmapT = sibconv.group_map(p_gmapT), sibconv.group_map(c_gmapT)
     cf = sib_context(net, config, pocc_packed, pslotmask, p_gmapT, parent_pos,
                      c_gmapT, c_slotmask)
     total = torch.zeros((), dtype=torch.float32, device=cf.device)

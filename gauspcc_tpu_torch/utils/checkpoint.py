@@ -7,14 +7,21 @@ writes: a module's parameters go under their names with "." as "/", and
 an `nn.Linear` keeps the JAX layout, "w" [in, out] (the transposed weight)
 and "b". So a HAC state saved here loads in the JAX package's
 `load_pytree`, and a JAX `model.npz` loads here (and through
-`convert.state_from_numpy` into a state). The pickled mid-training
-checkpoint (`save_training_checkpoint`) is not ported yet (ROADMAP.md
-Queue 1 item 7).
+`convert.state_from_numpy` into a state).
+
+`save_training_checkpoint` / `load_training_checkpoint` (JAX :35, :58)
+pickle a mid-training snapshot, written atomically through a `.tmp` file
+and `os.replace`. The port's pickle holds only numpy arrays and Python
+values (a module as its flat keys, tensors as arrays), so it loads
+without torch's device; the JAX package's holds optax NamedTuples, so
+neither package loads the other's snapshot (their `.npz` files they do).
 """
 
 from __future__ import annotations
 
 import copy
+import os
+import pickle
 from collections.abc import Mapping
 
 import numpy as np
@@ -51,6 +58,33 @@ def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
 
 def save_pytree(path, tree) -> None:
     np.savez(path, **flatten(tree))
+
+
+def _to_host(v):
+    if isinstance(v, Mapping):
+        return {k: _to_host(x) for k, x in v.items()}
+    if isinstance(v, nn.Module):
+        return flatten(v)
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return v
+
+
+def save_training_checkpoint(path, payload: Mapping) -> None:
+    """Pickle a mid-training snapshot (nested dicts of modules, tensors and
+    Python values) as numpy arrays: to `path + ".tmp"`, then renamed over
+    `path`, so a crash mid-write leaves the previous snapshot whole."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(_to_host(payload), f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+
+
+def load_training_checkpoint(path) -> dict:
+    """What `save_training_checkpoint` wrote (a file of this program's own:
+    unpickling runs code)."""
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def _unflatten(flat: Mapping[str, np.ndarray]) -> dict:

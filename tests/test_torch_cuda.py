@@ -853,3 +853,77 @@ def test_cat3dgs_scene_roundtrip_on_the_card(cuda_device, tmp_path, heads):
     for name, key in (("scaling", "scaling"), ("offset", "offset")):
         assert torch.equal(d[key][:m], values[name]), name
     assert sizes["triplane"] > 3 * 4560 * 8
+
+
+def _plane_cloud(seed: int, n: int) -> np.ndarray:
+    """tests/test_train_gauspcgc.py:15 (plane-ish, learnable)."""
+    base = np.random.default_rng(seed).integers(0, 64, size=(n, 3))
+    base[:, 2] = (base[:, 0] // 4 + base[:, 1] // 4) % 32
+    return np.unique(base, axis=0).astype(np.int64)
+
+
+@pytest.mark.cuda
+def test_codec_train_steps_on_the_card_match_the_cpu(cuda_device):
+    """Three float32 codec training steps at NetConfig(8, 3) from the same
+    weights on the card and on the CPU (cuBLAS in full precision): each
+    step's bpp within rtol 1e-5, the first step's gradients within 1e-4 of
+    each leaf's largest magnitude (the embeddings' scatter-add sums in
+    another order there), every weight after three Adam steps within 1e-4
+    of its leaf's largest magnitude plus 1e-5."""
+    from gauspcc_tpu_torch.codecs.gauspcgc import codec, model, train
+    cfg = train.TrainConfig(channels=8, kernel_size=3)
+    ncfg = model.NetConfig(8, 3, "f32")
+    runs = {}
+    with codec._exact_gemms():
+        for dev in (torch.device("cpu"), cuda_device):
+            net = model.init_net(ncfg, 11).to(dev)
+            opt = train.make_optimizer(cfg)
+            state = opt.init(dict(net.named_parameters()))
+            bpps, first = [], None
+            for step in range(3):
+                prepared = train.pyramid_batches_sib(_plane_cloud(step, 1500), dev)
+                if step == 0:
+                    for b in prepared[0]:
+                        train._batch_bits(net, ncfg, b)[0].backward()
+                    first = {k: p.grad.cpu() for k, p in net.named_parameters()}
+                state, bpp = train.train_step(net, opt, state, ncfg, None,
+                                              prepared=prepared)
+                bpps.append(bpp)
+            runs[dev.type] = (bpps, first, {k: p.detach().cpu()
+                                            for k, p in net.named_parameters()})
+    (bc, gc, wc), (bg, gg, wg) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(bg, bc, rtol=1e-5)
+    for k in gc:
+        scale = float(gc[k].abs().max())
+        assert float((gg[k] - gc[k]).abs().max()) <= 1e-4 * scale, k
+        assert float((wg[k] - wc[k]).abs().max()) <= 1e-4 * float(wc[k].abs().max()) + 1e-5, k
+
+
+@pytest.mark.cuda
+def test_codec_trained_then_coded_on_the_card(cuda_device, tmp_path):
+    """`train.train` on the card (4 steps, validated, best_model.npz), the
+    weights loaded back through convert, then a cloud coded and decoded on
+    the card losslessly through both rANS kernels."""
+    from gauspcc_tpu_torch import convert
+    from gauspcc_tpu_torch.codecs.gauspcgc import codec, data, train
+    from gauspcc_tpu_torch.ops import rans
+    paths = []
+    for i in range(2):
+        paths.append(str(tmp_path / f"c{i}.npy"))
+        np.save(paths[-1], _plane_cloud(10 + i, 3000).astype(np.float32))
+    cfg = train.TrainConfig(channels=8, kernel_size=3, max_steps=4, val_interval=2,
+                            model_dir=str(tmp_path / "m"))
+    train.train(cfg, data.PatchDataset(paths, seed=0, max_num=2000),
+                data.WholeCloudDataset(paths[:1]), device=cuda_device)
+    net = convert.load_codec_npz(str(tmp_path / "m" / "best_model.npz"), cfg.net,
+                                 device=cuda_device)
+    xyz = _plane_cloud(10, 3000)
+    enc, dec = rans.encode_launches, rans.decode_launches
+    out = codec.compress_point_cloud(xyz, net, str(tmp_path / "c.bin"),
+                                     config=cfg.net, device=cuda_device)
+    got = codec.decompress_point_cloud(str(tmp_path / "c.bin"), net, config=cfg.net,
+                                       device=cuda_device)
+    assert rans.encode_launches > enc and rans.decode_launches > dec
+    assert out["num_points"] == got["num_points"] == xyz.shape[0]
+    np.testing.assert_array_equal(
+        np.unique(got["point_cloud"].astype(np.int64), axis=0), xyz)

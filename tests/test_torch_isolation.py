@@ -33,4 +33,4 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 48, out.stdout
+    assert n_modules >= 64, out.stdout
