@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (`gauspcc_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--baseline FILE] [--baseline-rans FILE]
-    python3 chip_smoke.py --decode BIN --out NPY [--weights NPZ]
+    python3 chip_smoke.py --decode BIN|BINB --out NPY [--weights NPZ]
     python3 chip_smoke.py --decode-scene DIR
 
 Phases, each printed with its wall time; any failure ends the run with a
@@ -10,8 +10,9 @@ non-zero exit and no result line:
   device  the card's name and power limit (nvidia-smi); no CUDA -> exit 1
   build   nvcc builds every kernel of the port from gauspcc_tpu_torch/csrc,
           one nvcc per source, all started together, beside g++ building the
-          host arithmetic coder (csrc/ac_coder.cpp); ptxas registers, shared
-          memory and spills per kernel
+          host arithmetic coder (csrc/ac_coder.cpp) and the packed-map
+          code (csrc/neighbor.cpp); ptxas registers, shared memory and
+          spills per kernel
   kernel  the tile-blend kernel against its plain PyTorch version on random
           tiles at K = 1024 (empty tiles, short ones, tiles over K); the
           backward kernel against autograd of the plain version, for a
@@ -159,6 +160,30 @@ non-zero exit and no result line:
           codes val cloud 0 through K5 within [0.98, 1.1] x its
           teacher-forced bits + 5,000 and a fresh process (--decode BIN
           --weights NPZ) decodes it exactly
+  codec_engines  the general conv's engines with the r5 weights at
+          NetConfig(32, 5, bf16): the bench cloud through engine 6
+          (host-built geometry: csrc/neighbor.cpp's packed maps) and engine
+          7 (device-built geometry), each encoded twice (the second timed,
+          points/s, bits, bpp within 0.05 of the codec phase's sib bpp, peak
+          memory, K5 launches, per level its geometry, context, stage-CDF
+          and rANS ms by CUDA events and, for engine 6, the host ms of the
+          native map code and the packed maps' bytes; one encode under
+          torch.profiler: busy, idle share, longest kernels) and decoded in a
+          fresh process (--decode) exactly, with the host syncs of a decode
+          (engine 7's exactly one, on the final coordinates, whatever the
+          number of levels); bench.py:179-191's eight seeded clouds as one
+          merged .binb in engines 5, 6 and 7, each below 1.1 x the bits of
+          the eight single streams, timed beside them, decoded in a fresh
+          process (--decode of the .binb) with every cloud exact; then
+          `train.pyramid_batches` (the legacy levels) against
+          `pyramid_batches_sib` on the bench cloud, in float32 (total
+          teacher-forced bits within 1e-4 relative, every leaf's gradient
+          within 1e-3 of its norm) and in bf16 (bits within 1e-3 of the
+          sib levels'; every legacy leaf's gradient within 5e-2 of the
+          float32 one; the leaves' distance from the sib levels' bf16
+          gradients is printed, not checked), the finest level's forward
+          and forward-and-backward ms (CUDA events) and peak memory of
+          each in bf16
 
 With --baseline FILE, an earlier tile_blend.cu is built and run on the
 thin Gaussians at the cut (its values outside the tolerance are reported,
@@ -187,16 +212,19 @@ kernel's launches on the HAC++, the TC-GS and the CAT-3DGS path:
 training's for the blend kernels, TC-GS's 600 steps and 50 at phase 3,
 CAT-3DGS's 600 and 20 at each of phases 3, 4 and 5, the scene encode's
 and decode's for rANS; `launches_codec_train` for rANS, the trained
-weights' encode and decode of the held-out cloud) and,
+weights' encode and decode of the held-out cloud; `launches_codec_engines`
+for rANS, the codec_engines phase's encodes and decodes) and,
 last, {"ok": true, "device": {...}}. Nothing is written into the tree
 except the builds under gauspcc_tpu_torch/build/ (gitignored); the codecs'
 streams, the handed-off state and the decoded points go to temporary
 directories.
 
-With --decode BIN --out NPY it only decodes BIN with the r5 weights (or
-the .npz given by --weights), twice
-(the two must agree), saves the first decode's points to NPY and prints one
-JSON line with the decode times, the per-level profile and the launches.
+With --decode BIN --out NPY it only decodes BIN (a .bin of any of the
+port's engines, or a .binb batch stream, whose clouds go to NPY as the
+arrays of an .npz) with the r5 weights (or the .npz given by --weights),
+twice (the two must agree), saves the first decode's points to NPY and
+prints one JSON line with the decode times, the per-level profile, the
+launches and the host syncs of a third decode.
 With --decode-scene DIR it only decodes and evaluates the scene (of any
 family) that the scene codec, the hac_plus, the tcgs or the cat3dgs phase
 handed off in DIR and prints one JSON line.
@@ -329,6 +357,25 @@ CODEC_TRAIN_LOG_EVERY = 10
 # the coded size of a cloud against its teacher-forced bits, as
 # tests/test_gauspcgc.py:68 bounds it: [0.98 x, 1.1 x + 5,000]
 CODED_LOW, CODED_HIGH, CODED_SLACK = 0.98, 1.1, 5000
+# codec_engines phase: the general conv's engines within this bpp of the
+# sib engine's on the bench cloud; bench.py:179-191's eight clouds (numpy
+# default_rng(5); per cloud 60 centres in [0, 2500), 40,000 draws, N(0, 18),
+# rounded and deduplicated) as one batch stream below 1.1 x the bits of
+# their single streams (tests/test_gauspcgc.py:117); the legacy training
+# levels' bf16 bits against the sib levels', and every leaf's bf16
+# gradient against the float32 one (at trained weights a gradient can be a
+# small remainder of cancelling sums, so two bf16 gradients are held to
+# the exact one, not to each other)
+ENGINE_BPP_TOL = 0.05
+BATCH_SEED, BATCH_CLOUDS, BATCH_CENTRES, BATCH_DRAWS = 5, 8, 60, 40_000
+BATCH_SPAN, BATCH_SIGMA = 2500, 18
+BATCH_RATIO = 1.1
+LEGACY_BITS_RTOL = 1e-3
+LEGACY_GRAD_RTOL = 5e-2
+# float32: JAX's own rule for the bits (tests/test_sibconv.py:138), and
+# every leaf's gradient (the same sums in another order)
+LEGACY_F32_BITS_RTOL = 1e-4
+LEGACY_F32_GRAD_RTOL = 1e-3
 # random tables for the rANS kernels: (capacity, valid positions)
 RANS_RANDOM_CASES = ((16384, 11_111), (16384, 0), (2048, 2047))
 # scene codec phase: the GausPcgc weights the r5 soak coded its anchors with
@@ -1113,30 +1160,59 @@ def rans_bytes(tables, n_valid: int, encode: bool, words_moved: int) -> int:
 
 
 def decode_main(bin_path: str, out_path: str, weights: Path = CODEC_WEIGHTS) -> int:
-    """--decode: decode `bin_path` in this fresh process on the card, twice
-    (both must agree), save the first decode's points to `out_path` and
-    print one JSON line with the times, the per-level profile of the second
-    and its rANS decode launches."""
+    """--decode: decode `bin_path` (a .bin, or a .binb batch stream) in this
+    fresh process on the card, twice (both must agree), save the first
+    decode's points to `out_path` (a batch's clouds as arr_0, arr_1, ... of
+    an .npz) and print one JSON line with the times, the per-level profile
+    of the second, its rANS decode launches, and the host syncs of a third
+    (torch's sync debug mode: where the host waits for the card)."""
     dev = torch.device("cuda")
     net = convert.load_codec_npz(weights, device=dev)
+    batch = bin_path.endswith(".binb")
+    decode = (pcgc_codec.decompress_point_cloud_batch if batch
+              else pcgc_codec.decompress_point_cloud)
+    key = "point_clouds" if batch else "point_cloud"
     t0 = time.perf_counter()
-    first = pcgc_codec.decompress_point_cloud(bin_path, net, device=dev)
+    first = decode(bin_path, net, device=dev)
     first_s = time.perf_counter() - t0
-    np.save(out_path, first["point_cloud"])
+    if batch:
+        with open(out_path, "wb") as f:
+            np.savez(f, *first[key])
+    else:
+        np.save(out_path, first[key])
     rans.decode_launches = 0
     profile = []
     t0 = time.perf_counter()
-    second = pcgc_codec.decompress_point_cloud(bin_path, net, device=dev,
-                                               profile=profile)
+    second = decode(bin_path, net, device=dev, profile=profile)
     second_s = time.perf_counter() - t0
     launches = rans.decode_launches
-    if not np.array_equal(first["point_cloud"], second["point_cloud"]):
+    if not all(np.array_equal(a, b) for a, b in
+               zip(*(([r[key]] if not batch else r[key]) for r in (first, second)))):
         raise RuntimeError("two decodes of one stream in one process differ")
+    syncs = host_syncs(lambda: decode(bin_path, net, device=dev))
     print(json.dumps({"first_s": first_s, "dec_s": second_s,
                       "dec_time": second["dec_time"],
                       "num_points": second["num_points"],
-                      "launches": launches, "profile": profile}), flush=True)
+                      "launches": launches, "profile": profile,
+                      "host_syncs": sum(syncs.values()),
+                      "host_sync_lines": dict(syncs)}), flush=True)
     return 0
+
+
+def decode_fresh(path: str, out: str, weights: Path = CODEC_WEIGHTS) -> dict:
+    """This script's --decode of `path` in a fresh process -> its JSON line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--decode", path, "--out", out, "--weights",
+                           str(weights)], capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the decoding process failed (exit "
+                           f"{proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                           f"{proc.stderr[-4000:]}")
+    dec = json.loads(proc.stdout.strip().splitlines()[-1])
+    dec["process_s"] = time.perf_counter() - t0
+    return dec
 
 
 def finest_level(pts: np.ndarray, net, cfg, dev):
@@ -1158,10 +1234,11 @@ def finest_level(pts: np.ndarray, net, cfg, dev):
     return g, tables, syms
 
 
-def codec_phase(dev, baseline_rans: Path | None = None) -> list[dict]:
+def codec_phase(dev, baseline_rans: Path | None = None) -> tuple[list[dict], float]:
     """The GausPcgc codec on the bench cloud with the r5 weights; returns
-    the kernel rows of rans_encode and rans_decode. With `baseline_rans`,
-    an earlier rans.cu is checked and timed beside the kernels."""
+    the kernel rows of rans_encode and rans_decode and the bench cloud's
+    bpp. With `baseline_rans`, an earlier rans.cu is checked and timed
+    beside the kernels."""
     cfg = pcgc_model.NetConfig()
     net = convert.load_codec_npz(CODEC_WEIGHTS, cfg, device=dev)
     pts = bench_cloud()
@@ -1347,7 +1424,7 @@ def codec_phase(dev, baseline_rans: Path | None = None) -> list[dict]:
                  "launches": dec_launches, "max_abs_err": 0.0, "ms": dec_ms,
                  "plain_ms": dec_plain, "bound_ms": dec_bound,
                  "bound_by": "bytes", "library_ms": None})
-    return rows
+    return rows, out["bpp"]
 
 
 def regenerate_corpus(root: Path) -> tuple[list[str], list[str]]:
@@ -1567,6 +1644,252 @@ def codec_train_phase(dev) -> dict[str, int]:
         if dec["launches"] == 0:
             raise RuntimeError("the decode did not launch the rans decode kernel")
     return {"rans_encode": enc_launches, "rans_decode": dec["launches"]}
+
+
+def batch_clouds() -> list[np.ndarray]:
+    """A copy of bench.py:179-191's eight clouds."""
+    rng = np.random.default_rng(BATCH_SEED)
+    out = []
+    for _ in range(BATCH_CLOUDS):
+        centers = rng.integers(0, BATCH_SPAN, size=(BATCH_CENTRES, 3))
+        pts = centers[rng.integers(0, len(centers), BATCH_DRAWS)] + rng.normal(
+            0, BATCH_SIGMA, (BATCH_DRAWS, 3))
+        out.append(np.unique(np.round(pts), axis=0).astype(np.int64))
+    return out
+
+
+def same_points(got: np.ndarray, want: np.ndarray) -> bool:
+    got = np.unique(np.asarray(got).astype(np.int64), axis=0)
+    return got.shape == want.shape and np.array_equal(got, want)
+
+
+def engine_levels_report(label: str, profile: list) -> None:
+    for d, lvl in enumerate(profile):
+        host = (f", host geometry {lvl['host_ms']:.3f} ms (neighbor.cpp and "
+                f"packing), packed maps {lvl['map_bytes']} B"
+                if "host_ms" in lvl else "")
+        log(f"  {label} level {d}: n_child {lvl['n_child']}, ccap {lvl['ccap']}: "
+            f"geometry {lvl['geometry']:.3f} ms, context {lvl['context']:.3f} ms, "
+            f"stage CDFs {lvl['cdf']:.3f} ms, rans {lvl['rans']:.3f} ms (CUDA "
+            f"events){host}")
+
+
+def legacy_grads(net, cfg, batches) -> tuple[float, dict]:
+    """Total bits and every leaf's gradient summed over a cloud's levels."""
+    net.zero_grad(set_to_none=True)
+    total = 0.0
+    for b in batches:
+        bits, _ = pcgc_train._batch_bits(net, cfg, b)
+        bits.backward()
+        total += float(bits.detach())
+    grads = {k: p.grad.clone() for k, p in net.named_parameters()}
+    net.zero_grad(set_to_none=True)
+    return total, grads
+
+
+def codec_engines_phase(dev, sib_bpp: float) -> dict[str, int]:
+    """The general conv's engines (6: host-built geometry, 7: device-built)
+    on the bench cloud, the eight-cloud batch in engines 5, 6 and 7, and
+    the legacy training levels against the sib levels, at full width with
+    the r5 weights. Returns the rANS kernels' launches of its coding."""
+    cfg = pcgc_model.NetConfig()
+    net = convert.load_codec_npz(CODEC_WEIGHTS, cfg, device=dev)
+    pts = bench_cloud()
+    want = np.unique(pts, axis=0)
+    launches = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for geom, version in (("host", 6), ("device", 7)):
+            path = str(Path(tmp) / f"bench_{geom}.bin")
+            t0 = time.perf_counter()
+            pcgc_codec.compress_point_cloud(pts, net, path, config=cfg,
+                                            geom=geom, device=dev)
+            log(f"  engine {version} ({geom}-built geometry): first encode "
+                f"(set-up included) {time.perf_counter() - t0:.3f} s")
+            torch.cuda.reset_peak_memory_stats()
+            rans.encode_launches = 0
+            profile = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pcgc_codec.compress_point_cloud(pts, net, path, config=cfg,
+                                                  geom=geom, device=dev,
+                                                  profile=profile)
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
+            enc_launches = rans.encode_launches
+            launches["rans_encode"] += enc_launches
+            log(f"  engine {version} encode: {enc_s:.4f} s wall "
+                f"({pts.shape[0] / enc_s:.1f} points/s), {out['file_size_bits']} "
+                f"bits, bpp {out['bpp']:.4f} against the sib engine's "
+                f"{sib_bpp:.4f} in this run (limit +-{ENGINE_BPP_TOL}), peak "
+                f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                f"GiB, rans_encode launches {enc_launches}")
+            engine_levels_report(f"engine {version} encode", profile)
+            if enc_launches == 0:
+                raise RuntimeError(f"engine {version}'s encode did not launch "
+                                   "the rans encode kernel")
+            if not abs(out["bpp"] - sib_bpp) <= ENGINE_BPP_TOL:
+                raise RuntimeError(f"engine {version}'s bpp {out['bpp']:.4f} is "
+                                   f"not within {ENGINE_BPP_TOL} of {sib_bpp:.4f}")
+            dec = decode_fresh(path, str(Path(tmp) / f"bench_{geom}.npy"))
+            if not same_points(np.load(str(Path(tmp) / f"bench_{geom}.npy")), want):
+                raise RuntimeError(f"engine {version}: lossy decode")
+            launches["rans_decode"] += dec["launches"]
+            n_levels = len(dec["profile"])
+            log(f"  engine {version} decode in a fresh process "
+                f"({dec['process_s']:.3f} s with start-up): lossless, "
+                f"{dec['num_points']} points; first {dec['first_s']:.4f} s, "
+                f"second {dec['dec_s']:.4f} s wall ({pts.shape[0] / dec['dec_s']:.1f} "
+                f"points/s), rans_decode launches {dec['launches']}; host syncs "
+                f"of a decode of {n_levels} levels: {dec['host_syncs']} "
+                f"{dec['host_sync_lines']}")
+            for d, lvl in enumerate(dec["profile"]):
+                log(f"  engine {version} decode level {d}: n_child "
+                    f"{lvl['n_child']}: geometry {lvl['geometry']:.3f} ms, context "
+                    f"{lvl['context']:.3f} ms, stage CDFs and rans "
+                    f"{lvl['cdf_and_rans']:.3f} ms (CUDA events)")
+            if dec["launches"] == 0:
+                raise RuntimeError(f"engine {version}'s decode did not launch "
+                                   "the rans decode kernel")
+            if geom == "device" and dec["host_syncs"] != 1:
+                raise RuntimeError(f"engine 7's decode waits {dec['host_syncs']} "
+                                   f"times over {n_levels} levels, not once: "
+                                   f"{dec['host_sync_lines']}")
+
+            def encode():
+                pcgc_codec.compress_point_cloud(pts, net, path, config=cfg,
+                                                geom=geom, device=dev)
+            wall = float(np.median(wall_ms(encode, 3)))
+            busy, n_act, top = device_profile(encode)
+            log(f"  engine {version}, one encode under torch.profiler: {n_act} "
+                f"device activities, busy {busy:.3f} ms of a median wall clock "
+                f"of {wall:.3f} ms (idle share {1 - busy / wall:.4f})")
+            for name, count, ms in top:
+                log(f"    {ms:9.3f} ms  {count:5d}x  {name[:100]}")
+
+        # the eight clouds as one merged stream, in each engine
+        clouds = batch_clouds()
+        wants = [np.unique(c, axis=0) for c in clouds]
+        n_total = sum(c.shape[0] for c in clouds)
+        log(f"  batch: {len(clouds)} clouds (bench.py:179-191), {n_total} points")
+        for geom, version in (("sib", 5), ("host", 6), ("device", 7)):
+            single_bits, single_enc, single_dec = 0, 0.0, 0.0
+            rans.encode_launches = rans.decode_launches = 0
+            for i, c in enumerate(clouds):
+                path = str(Path(tmp) / f"single_{geom}_{i}.bin")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                single_bits += pcgc_codec.compress_point_cloud(
+                    c, net, path, config=cfg, geom=geom, device=dev)["file_size_bits"]
+                torch.cuda.synchronize()
+                single_enc += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                dec = pcgc_codec.decompress_point_cloud(path, net, config=cfg,
+                                                        device=dev)
+                single_dec += time.perf_counter() - t0
+                if not same_points(dec["point_cloud"], wants[i]):
+                    raise RuntimeError(f"engine {version}: cloud {i} decoded lossy")
+            path = str(Path(tmp) / f"batch_{geom}.binb")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pcgc_codec.compress_point_cloud_batch(clouds, net, path,
+                                                        config=cfg, geom=geom,
+                                                        device=dev)
+            torch.cuda.synchronize()
+            batch_enc = time.perf_counter() - t0
+            launches["rans_encode"] += rans.encode_launches
+            launches["rans_decode"] += rans.decode_launches
+            dec = decode_fresh(path, str(Path(tmp) / f"batch_{geom}.npz"))
+            with np.load(str(Path(tmp) / f"batch_{geom}.npz")) as z:
+                got = [z[f"arr_{i}"] for i in range(len(clouds))]
+            if not all(same_points(g, w) for g, w in zip(got, wants)):
+                raise RuntimeError(f"engine {version}: a batch cloud decoded lossy")
+            launches["rans_decode"] += dec["launches"]
+            ratio = out["file_size_bits"] / single_bits
+            log(f"  engine {version} batch: {out['file_size_bits']} bits "
+                f"(bpp {out['bpp']:.4f}) against {single_bits} bits of the 8 "
+                f"single streams ({ratio:.4f} x, limit {BATCH_RATIO}); encode "
+                f"{batch_enc:.4f} s wall (singles {single_enc:.4f} s), decode in "
+                f"a fresh process {dec['dec_s']:.4f} s wall, second of two "
+                f"(singles here {single_dec:.4f} s); every cloud lossless; "
+                f"rans launches encode {rans.encode_launches}, decode "
+                f"{rans.decode_launches} + {dec['launches']}")
+            if not ratio < BATCH_RATIO:
+                raise RuntimeError(f"engine {version}'s batch costs {ratio:.4f} x")
+            if dec["launches"] == 0 or rans.encode_launches == 0:
+                raise RuntimeError(f"engine {version}'s batch coding did not "
+                                   "launch both rans kernels")
+
+    # the legacy training levels against the sib levels, in float32 (the
+    # two convs' gradients must agree) and in bf16 (the codec's dtype)
+    xyz = pts
+    t0 = time.perf_counter()
+    legacy, n_legacy = pcgc_train.pyramid_batches(xyz, cfg.kernel_size, dev)
+    torch.cuda.synchronize()
+    legacy_geo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sib, n_sib = pcgc_train.pyramid_batches_sib(xyz, dev)
+    torch.cuda.synchronize()
+    sib_geo_s = time.perf_counter() - t0
+    if n_legacy != n_sib or len(legacy) != len(sib):
+        raise RuntimeError("the legacy and sib levels disagree on the cloud")
+    log(f"  legacy training levels (pyramid_batches, {len(legacy)} levels, "
+        f"geometry {legacy_geo_s:.3f} s) against the sib levels (geometry "
+        f"{sib_geo_s:.3f} s), r5 weights, the bench cloud")
+    res = {}
+    for dtype in ("f32", "bf16"):
+        dcfg = cfg._replace(dtype=dtype)
+        for label, batches in (("legacy", legacy), ("sib", sib)):
+            torch.cuda.reset_peak_memory_stats()
+            bits, grads = legacy_grads(net, dcfg, batches)
+            res[dtype, label] = (bits, grads, torch.cuda.max_memory_allocated())
+        (bl, gl, pl), (bs, gs, ps) = res[dtype, "legacy"], res[dtype, "sib"]
+        rel_bits = abs(bl - bs) / bs
+        limit = LEGACY_BITS_RTOL if dtype == "bf16" else LEGACY_F32_BITS_RTOL
+        log(f"  {dtype}: bits {bl:.1f} vs {bs:.1f} (relative {rel_bits:.3e}, limit "
+            f"{limit}); peak device memory with the backward {pl / 2**30:.2f} vs "
+            f"{ps / 2**30:.2f} GiB")
+        if not rel_bits <= limit:
+            raise RuntimeError(f"{dtype}: the legacy levels' bits differ by "
+                               f"{rel_bits:.3e}")
+        # f32: legacy against sib, checked; bf16: legacy and sib each
+        # against the float32 sib gradient, legacy checked, and legacy
+        # against sib, printed
+        g32 = res["f32", "sib"][1]
+        dists = ((("legacy - sib", gl, gs, LEGACY_F32_GRAD_RTOL),)
+                 if dtype == "f32" else
+                 (("legacy - f32", gl, g32, LEGACY_GRAD_RTOL),
+                  ("sib - f32", gs, g32, None), ("legacy - sib", gl, gs, None)))
+        for what, ga, gb, glimit in dists:
+            rel = {k: float((ga[k] - gb[k]).norm() / gb[k].norm().clamp_min(1e-30))
+                   for k in gb}
+            worst = max(rel, key=rel.get)
+            log(f"    {dtype} every leaf's gradient, |{what}| / |{what.split()[-1]}|: "
+                f"largest {rel[worst]:.3e} ({worst}; limit {glimit or 'none, printed'}), "
+                f"median {float(np.median(list(rel.values()))):.3e}")
+            log("      " + ", ".join(f"{k} {v:.2e}" for k, v in sorted(rel.items())))
+            bad = [k for k, v in rel.items() if glimit is not None and v > glimit]
+            if bad:
+                raise RuntimeError(f"{dtype}: the legacy gradients of {bad} are "
+                                   f"past {glimit} ({what})")
+    del res
+    for label, batches in (("legacy", legacy), ("sib", sib)):
+        fine = batches[-1]
+
+        def forward():
+            pcgc_train._batch_bits(net, cfg, fine)
+
+        def forward_backward():
+            pcgc_train._batch_bits(net, cfg, fine)[0].backward()
+
+        fwd_ms = cuda_ms(forward, 3)
+        torch.cuda.reset_peak_memory_stats()
+        fb_ms = cuda_ms(forward_backward, 3)
+        peak = torch.cuda.max_memory_allocated()
+        net.zero_grad(set_to_none=True)
+        log(f"  bf16 {label} finest level: forward {fwd_ms:.3f} ms, forward and "
+            f"backward {fb_ms:.3f} ms (CUDA events, mean of 3 back-to-back); "
+            f"peak device memory {peak / 2**30:.2f} GiB")
+    return dict(launches)
 
 
 def training_report(tres) -> None:
@@ -2634,16 +2957,17 @@ def main() -> int:
 
     with Phase("build"):
         sources = ("tile_blend", "rans")
-        with ThreadPoolExecutor(len(sources) + 1) as pool:  # one nvcc per source
-            host = pool.submit(native.load_host, "ac_coder")
-            builds = list(pool.map(native.load, sources))
-            coder_lib = host.result()
+        hosts = ("ac_coder", "neighbor")
+        with ThreadPoolExecutor(len(sources) + len(hosts)) as pool:
+            host_builds = [pool.submit(native.load_host, h) for h in hosts]
+            builds = list(pool.map(native.load, sources))  # one nvcc per source
+            host_libs = [h.result() for h in host_builds]
         for name, built in zip(sources, builds):
             log(f"  {name}: nvcc {built.seconds:.3f} s -> {built.path.name}")
             for line in ptxas_lines(built.log):
                 log(f"  ptxas {line}")
-        log(f"  ac_coder (host): g++ {coder_lib.seconds:.3f} s -> "
-            f"{coder_lib.path.name}")
+        for name, lib in zip(hosts, host_libs):
+            log(f"  {name} (host): g++ {lib.seconds:.3f} s -> {lib.path.name}")
 
     with Phase("kernel"):
         gen = torch.Generator().manual_seed(SEED)
@@ -3141,16 +3465,20 @@ def main() -> int:
             raise RuntimeError("card and CPU training steps disagree")
 
     with Phase("codec"):
-        codec_rows = codec_phase(dev, opts.baseline_rans)
+        codec_rows, sib_bpp = codec_phase(dev, opts.baseline_rans)
 
     with Phase("codec_train"):
         train_launches = codec_train_phase(dev)
+
+    with Phase("codec_engines"):
+        engine_launches = codec_engines_phase(dev, sib_bpp)
 
     for row in codec_rows:
         row["launches_hac_plus"] = hacp_launches[row["name"]]
         row["launches_tcgs"] = tcgs_launches[row["name"]]
         row["launches_cat3dgs"] = cat_launches[row["name"]]
         row["launches_codec_train"] = train_launches[row["name"]]
+        row["launches_codec_engines"] = engine_launches[row["name"]]
     log(json.dumps({"kernels": [{
         "name": "tile_blend",
         "route": "cuda",

@@ -1,6 +1,6 @@
 """Command-line drivers for the GausPcgc codec: the port's counterpart of
-gauspcc_tpu/codecs/gauspcgc/cli.py (`cmd_compress` :38, `cmd_decompress`
-:105, `cmd_train` :137, `_synth_clustered` :173, `_rand_rot` :186,
+gauspcc_tpu/codecs/gauspcgc/cli.py (`cmd_compress` :38, `_compress_batched`
+:68, `cmd_decompress` :105, `cmd_train` :137, `_synth_clustered` :173, `_rand_rot` :186,
 `_synth_surface` :197, `cmd_synth` :243).
 
 Parity with the reference CLIs (GausPcgc/compress_ue_4stage_conv.py,
@@ -18,8 +18,9 @@ Usage:
       --training_data 'train/*.npy' --val_data 'val/*.npy' \
       --model_save_folder my_model/ [--device cpu]
   python -m gauspcc_tpu_torch.codecs.gauspcgc.cli compress --input 'clouds/*.ply' \
-      --ckpt my_model/best_model.npz --output_dir out/
-  python -m gauspcc_tpu_torch.codecs.gauspcgc.cli decompress --input 'out/*.bin' \
+      --ckpt my_model/best_model.npz --output_dir out/ [--geom host|device] \
+      [--batch 8]
+  python -m gauspcc_tpu_torch.codecs.gauspcgc.cli decompress --input 'out/*.bin*' \
       --ckpt my_model/best_model.npz --output_dir dec/
 
 `train` has no default folder: it writes best_model.npz, train_state.pkl,
@@ -27,9 +28,11 @@ scalars.jsonl and train.log into the folder it is given, so it never
 overwrites weights the caller did not name.
 
 A checkpoint is an .npz of the JAX package's keys (`convert.load_codec_npz`),
-so weights either package trained code here. Only the sib engine codes, a
-cloud at a time: `--batch` above 1 and `--geom host|device` raise (ROADMAP.md
-Queue 1 item 7e). Runs on the card unless `--device cpu` is given.
+so weights either package trained code here. `--geom` picks the engine (the
+sib engine by default; `host` and `device` the general conv over host- or
+device-built geometry); `--batch N` codes N clouds a stream into
+batch_<first>.binb files, which `decompress` splits back into
+<name>_<i>.ply. Runs on the card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -38,14 +41,12 @@ import argparse
 import csv
 import os
 import sys
+import time
 from glob import glob
 
 import numpy as np
 
 from gauspcc_tpu_torch.codecs.gauspcgc import data
-
-_LATER = "see ROADMAP.md Queue 1 item 7e"
-
 
 def _load_params(ckpt: str, cfg, device):
     from gauspcc_tpu_torch import convert
@@ -69,22 +70,19 @@ def _write_csv(path: str, rows: list[dict]) -> None:
 def cmd_compress(args):
     from gauspcc_tpu_torch.codecs.gauspcgc import codec
 
-    if args.batch > 1:
-        raise NotImplementedError(f"--batch {args.batch}: batch coding is not "
-                                  f"ported yet ({_LATER})")
-    if args.geom is not None:
-        raise NotImplementedError(f"--geom {args.geom}: only the sib engine is "
-                                  f"ported ({_LATER})")
     cfg = _net_config(args)
     params = _load_params(args.ckpt, cfg, args.device)
     os.makedirs(args.output_dir, exist_ok=True)
+    if args.batch > 1:
+        return _compress_batched(args, cfg, params)
     rows = []
     for path in sorted(glob(args.input)):
         xyz = data.quantize_cloud(data.read_points(path), args.posQ)
         name = os.path.splitext(os.path.basename(path))[0]
         out_path = os.path.join(args.output_dir, name + ".bin")
         res = codec.compress_point_cloud(xyz, params, out_path, posQ=1.0,
-                                         config=cfg, device=args.device)
+                                         config=cfg, geom=args.geom,
+                                         device=args.device)
         rows.append(
             dict(file=name, bpp=res["bpp"], enc_time=res["enc_time"],
                  bits=res["file_size_bits"], num_points=res["num_points"])
@@ -98,6 +96,38 @@ def cmd_compress(args):
     print(f"mean bpp: {mean_bpp:.4f} over {len(rows)} files -> {csv_path}")
 
 
+def _compress_batched(args, cfg, params):
+    """Groups of --batch clouds, each group one merged stream
+    (`codec.compress_point_cloud_batch`) named batch_<first index>.binb."""
+    from gauspcc_tpu_torch.codecs.gauspcgc import codec
+
+    paths = sorted(glob(args.input))
+    if not paths:
+        sys.exit(f"no files match {args.input}")
+    rows = []
+    t0 = time.time()
+    total_pts = 0
+    for gi in range(0, len(paths), args.batch):
+        clouds = [data.quantize_cloud(data.read_points(p), args.posQ)
+                  for p in paths[gi : gi + args.batch]]
+        out_path = os.path.join(args.output_dir, f"batch_{gi:04d}.binb")
+        res = codec.compress_point_cloud_batch(
+            clouds, params, out_path, posQ=1.0, config=cfg, geom=args.geom,
+            device=args.device)
+        total_pts += res["num_points"]
+        rows.append(dict(
+            file=os.path.basename(out_path), bpp=res["bpp"],
+            enc_time=res["enc_time"], bits=res["file_size_bits"],
+            num_points=res["num_points"], num_clouds=res["num_clouds"]))
+        print(f"{out_path}: {res['num_clouds']} clouds, "
+              f"{res['bpp']:.4f} bpp, {res['enc_time']:.2f}s")
+    wall = time.time() - t0
+    csv_path = os.path.join(args.output_dir, "compress_results.csv")
+    _write_csv(csv_path, rows)
+    print(f"aggregate: {total_pts / max(wall, 1e-9):.0f} pts/s over "
+          f"{len(paths)} files -> {csv_path}")
+
+
 def cmd_decompress(args):
     from gauspcc_tpu_torch.codecs.gauspcgc import codec
 
@@ -108,14 +138,20 @@ def cmd_decompress(args):
     for path in sorted(glob(args.input)):
         name = os.path.splitext(os.path.basename(path))[0]
         if path.endswith(".binb"):
-            raise NotImplementedError(f"{path}: batch streams are not ported "
-                                      f"yet ({_LATER})")
-        res = codec.decompress_point_cloud(path, params, config=cfg,
-                                           device=args.device)
-        out_path = os.path.join(args.output_dir, name + ".ply")
-        data.save_ply_ascii_geo(res["point_cloud"], out_path)
-        print(f"{name}: {res['num_points']} pts, "
-              f"{res['dec_time']:.2f}s -> {out_path}")
+            res = codec.decompress_point_cloud_batch(path, params, config=cfg,
+                                                     device=args.device)
+            for i, pc in enumerate(res["point_clouds"]):
+                out_path = os.path.join(args.output_dir, f"{name}_{i:03d}.ply")
+                data.save_ply_ascii_geo(pc, out_path)
+            print(f"{name}: {res['num_points']} pts in "
+                  f"{len(res['point_clouds'])} clouds, {res['dec_time']:.2f}s")
+        else:
+            res = codec.decompress_point_cloud(path, params, config=cfg,
+                                               device=args.device)
+            out_path = os.path.join(args.output_dir, name + ".ply")
+            data.save_ply_ascii_geo(res["point_cloud"], out_path)
+            print(f"{name}: {res['num_points']} pts, "
+                  f"{res['dec_time']:.2f}s -> {out_path}")
         rows.append(dict(file=name, dec_time=res["dec_time"],
                          num_points=res["num_points"]))
     if not rows:
@@ -278,15 +314,17 @@ def main(argv=None):
     c.add_argument("--output_dir", required=True)
     c.add_argument("--posQ", type=float, default=1.0)
     c.add_argument("--geom", default=None, choices=("host", "device"),
-                   help="the JAX package's other engines (not ported: the "
-                        "sib engine codes)")
+                   help="the general conv over host-built (version 6) or "
+                        "device-built (version 7) geometry; the sib engine "
+                        "(version 5) by default")
     c.add_argument("--batch", type=int, default=1,
-                   help=">1: merged batch streams (not ported)")
+                   help=">1: that many clouds a merged .binb stream")
     c.set_defaults(fn=cmd_compress)
 
     d = sub.add_parser("decompress")
     common(d)
-    d.add_argument("--input", required=True, help="glob of .bin files")
+    d.add_argument("--input", required=True,
+                   help="glob of .bin and .binb (batch) files")
     d.add_argument("--ckpt", required=True)
     d.add_argument("--output_dir", required=True)
     d.set_defaults(fn=cmd_decompress)

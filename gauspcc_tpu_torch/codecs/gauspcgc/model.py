@@ -1,8 +1,10 @@
-"""GausPcgc occupancy-context network over the sibling-packed layout: the
-port's counterpart of gauspcc_tpu/codecs/gauspcgc/model.py (`NetConfig`
-:36, `init_params` :108, `_head` :173, `split_occupancy` :180,
-`merge_occupancy` :191, `_conv_stack_sib` :328, `_spatial_sib` :346,
-`sib_context` :361, `sib_stage_probs` :393, `level_bits_sib` :410).
+"""GausPcgc occupancy-context network: the port's counterpart of
+gauspcc_tpu/codecs/gauspcgc/model.py (`NetConfig` :36, `init_params` :108,
+`_conv` .. `_spatial` :131-170, `_head` :173, `split_occupancy` :180,
+`merge_occupancy` :191, `level_context` :200, `level_context_packed`
+:253, `stage_probs` :283, `level_bits` :299, `level_bits_packed` :314,
+`_conv_stack_sib` :328, `_spatial_sib` :346, `sib_context` :361,
+`sib_stage_probs` :393, `level_bits_sib` :410, `_staged_bits` :437).
 
 The reference's 4-stage occupancy predictor
 (GausPcgc/network_ue_4stage_conv.py:11-181): prior embedding and conv
@@ -22,6 +24,15 @@ whose backward is an `index_add_`: a table row read by a million voxels
 order, where indexing's sort-based backward serialises the duplicates
 (1.9 s of a 2.4 s step on an H100); on the CPU the sum is sequential.
 
+One `GausPcgcNet` serves both convs: the sibling-packed one (its modules'
+forward, over group maps) and the general submanifold conv
+(`level_context*`, `stage_probs`, `level_bits*`: plain functions reading
+each `SibConv`'s w [k^3, Cin, Cout] and b, over the neighbor maps of
+ops/sparse.py), so one set of weights serves every engine of the codec.
+The general conv stacks, as JAX's, mask no slot: a padded row's output is
+its bias, which no valid row reads. Their convs keep only their input for
+the backward (`sparse._SparseConv`).
+
 A group map argument is a `sibconv.GroupMap` (its gather rows and their
 flip, built once per level, as the trainer's and the codec's geometry keep
 them) or a group neighbor map [G, 27], converted on each call. The network trains
@@ -39,7 +50,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gauspcc_tpu_torch.ops import sibconv
+from gauspcc_tpu_torch.ops import sibconv, sparse
 
 STAGE_SIZES = (2, 2, 4, 16)  # symbols per stage head
 STAGE_COND = (1, 2, 4, 16)  # condition embedding rows (stage 0 has none)
@@ -223,3 +234,124 @@ def level_bits_sib(net: GausPcgcNet, config: NetConfig, pocc_packed,
         if stage < 3:
             prev = gt if stage == 0 else prev * (2, 2, 4)[stage] + gt
     return total, c_slotmask.sum()
+
+
+# ---------------------------------------------------------------------------
+# the general submanifold conv over neighbor maps (engines 6 and 7, and the
+# legacy training levels)
+# ---------------------------------------------------------------------------
+
+def _conv(conv: sibconv.SibConv, feats, nmap: sparse.NeighborMap):
+    return sparse.sparse_conv_apply(feats, nmap, conv.w, conv.b)
+
+
+def _as_dense_map(nmap, kernel_size: int) -> sparse.NeighborMap:
+    """A dense NeighborMap as it is; a packed WindowMap expanded."""
+    if isinstance(nmap, sparse.WindowMap):
+        return sparse.nmap_from_packed(nmap, kernel_size)
+    return nmap
+
+
+def _resnet(r: _ResNet, feats, nmap):
+    h = torch.relu(_conv(r.conv0, feats, nmap))
+    return torch.relu(_conv(r.conv1, h, nmap) + feats)
+
+
+def _conv_stack(stack: ConvStack, feats, nmap):
+    """conv + ReLU + 2 ResNets."""
+    h = torch.relu(_conv(stack.conv, feats, nmap))
+    return _resnet(stack.res1, _resnet(stack.res0, h, nmap), nmap)
+
+
+def _spatial(sp: Spatial, feats, nmap):
+    """conv + ReLU + conv."""
+    return _conv(sp.conv1, torch.relu(_conv(sp.conv0, feats, nmap)), nmap)
+
+
+def level_context(net: GausPcgcNet, config: NetConfig, parent_coords,
+                  parent_occ, parent_mask, child_cap: int) -> dict:
+    """Parent-to-child context of one level, the geometry built on the
+    parents' device: the children expanded, lex-sorted (valid first) and
+    cut to `child_cap` rows (`sparse.sorted_children`, engine 7's), their
+    features after target_resnet, and their neighbor map (which the four
+    stages reuse, and which is the next level's parent map).
+    -> {child_coords, child_mask, octant, feats, nmap}."""
+    k = config.kernel_size
+    p_nmap = sparse.build_neighbor_map(parent_coords, parent_mask,
+                                       parent_coords, parent_mask, k)
+    child, child_mask, octant, parent_idx = sparse.sorted_children(
+        parent_coords, parent_occ, parent_mask, child_cap)
+    c_nmap = sparse.build_neighbor_map(child, child_mask, child, child_mask, k)
+    feats = level_context_packed(net, config, parent_occ, parent_mask, p_nmap,
+                                 octant, parent_idx, child_mask, c_nmap)
+    return {"child_coords": child, "child_mask": child_mask, "octant": octant,
+            "feats": feats, "nmap": c_nmap}
+
+
+def level_context_packed(net: GausPcgcNet, config: NetConfig, parent_occ,
+                         parent_mask, p_nmap, octant, parent_idx, child_mask,
+                         c_nmap) -> torch.Tensor:
+    """Child context features [Cc, C] from prebuilt geometry: the parents'
+    occupancy and mask [Np], their map, and per child (lex order, padded to
+    Cc) its octant, parent row (< 0 on padding) and mask. The maps are
+    NeighborMaps or WindowMaps. Equal to `level_context`'s features."""
+    dt = config.compute_dtype
+    k = config.kernel_size
+    p_nmap = _as_dense_map(p_nmap, k)
+    c_nmap = _as_dense_map(c_nmap, k)
+    pf = net.prior_embedding.index_select(0, _clamp_rows(parent_occ, 256))
+    pf = torch.where(parent_mask[:, None], pf, 0.0).to(dt)
+    pf = _conv_stack(net.prior_resnet, pf, p_nmap)
+    cf = (pf.index_select(0, _clamp_rows(parent_idx, pf.shape[0]))
+          + net.target_embedding.index_select(0, _clamp_rows(octant, 8)).to(dt))
+    cf = torch.where(child_mask[:, None], cf, 0).to(dt)
+    return _conv_stack(net.target_resnet, cf, c_nmap)
+
+
+def stage_probs(net: GausPcgcNet, stage: int, ctx_feats, nmap,
+                prev_sym) -> torch.Tensor:
+    """One stage's probabilities [Cc, S] given the earlier symbols prev_sym
+    int [Cc] (0 at stage 0; then bit 8, bits 8-7, bits 8-5)."""
+    sp = getattr(net, f"spatial_s{stage}")
+    nmap = _as_dense_map(nmap, sp.conv0.kernel_size)
+    f = ctx_feats
+    if stage > 0:
+        table = getattr(net, f"cond_emb_s{stage}")
+        f = f + table.index_select(
+            0, _clamp_rows(prev_sym, table.shape[0])).to(f.dtype)
+    return getattr(net, f"head_s{stage}")(_spatial(sp, f, nmap))
+
+
+def level_bits(net: GausPcgcNet, config: NetConfig, parent_coords,
+               parent_occ, parent_mask, gt_child_occ):
+    """Teacher-forced bits of one level, the geometry built on the device:
+    gt_child_occ int [C] aligned with the sorted valid children, C the
+    child capacity. -> (total bits, valid children)."""
+    ctx = level_context(net, config, parent_coords, parent_occ, parent_mask,
+                        child_cap=gt_child_occ.shape[0])
+    return _staged_bits(net, ctx["feats"], ctx["nmap"], ctx["child_mask"],
+                        gt_child_occ)
+
+
+def level_bits_packed(net: GausPcgcNet, config: NetConfig, parent_occ,
+                      parent_mask, p_nmap, octant, parent_idx, child_mask,
+                      c_nmap, gt_child_occ):
+    """`level_bits` over prebuilt geometry (see `level_context_packed`); the
+    child map is expanded once for the context and the four stages."""
+    c_nmap = _as_dense_map(c_nmap, config.kernel_size)
+    feats = level_context_packed(net, config, parent_occ, parent_mask, p_nmap,
+                                 octant, parent_idx, child_mask, c_nmap)
+    return _staged_bits(net, feats, c_nmap, child_mask, gt_child_occ)
+
+
+def _staged_bits(net, feats, nmap, mask, gt_child_occ):
+    total = torch.zeros((), dtype=torch.float32, device=feats.device)
+    prev = torch.zeros_like(gt_child_occ, dtype=torch.int32)
+    for stage, gt in enumerate(split_occupancy(gt_child_occ)):
+        probs = stage_probs(net, stage, feats, nmap, prev)
+        p = probs.gather(1, gt.to(torch.int64)[:, None])[:, 0]
+        bits = torch.clamp(-torch.log2(p + 1e-10), 0.0, 50.0)
+        total = total + torch.where(mask, bits, 0.0).sum()
+        if stage < 3:
+            prev = gt if stage == 0 else prev * (2, 2, 4)[stage] + gt
+    return total, mask.sum()

@@ -1,8 +1,9 @@
 """GausPcgc codec trainer: the port's counterpart of
 gauspcc_tpu/codecs/gauspcgc/train.py (`TrainConfig` :37, `make_optimizer`
 :54, `SibLevel` :102, `_bucket_train` :120, `pyramid_batches_sib` :143,
-`cloud_bits` :283, `train_step` :296, `setup_logger` :322,
-`_prepared_nbytes` :339, `train` :364).
+`pyramid_batches` :242, `_batch_bits` :261, `cloud_bits` :283,
+`train_step` :296, `setup_logger` :322, `_prepared_nbytes` :339, `train`
+:364).
 
 Parity with the reference single-GPU loop (GausPcgc/train.py:144-256):
 Adam lr 5e-4 decayed x0.1 at [40k, 90k], 110k steps, a KD patch a step,
@@ -13,9 +14,11 @@ A step builds (or takes from the geometry cache) the patch's
 sibling-packed pyramid on the training device, then runs one forward and
 one backward per level, so no graph spans the levels: the gradients
 accumulate in `.grad`, are scaled by 1/n_points and applied by one Adam
-update, and the step reads its bits from the device once. Only the sib
-engine trains; JAX's legacy levels of the general sparse conv
-(`pyramid_batches`) belong to ROADMAP.md Queue 1 item 7e.
+update, and the step reads its bits from the device once. The trainer
+builds the sib engine's levels (`pyramid_batches_sib`); `cloud_bits` and
+`train_step` also take JAX's legacy levels of the general sparse conv
+(`pyramid_batches`: codec engine 6's geometry), whose gradients come from
+the general conv's scatter-free backward (ops/sparse.py).
 """
 
 from __future__ import annotations
@@ -31,16 +34,13 @@ import torch
 
 from gauspcc_tpu_torch import convert
 from gauspcc_tpu_torch.codecs.gauspcgc import model
-from gauspcc_tpu_torch.codecs.gauspcgc.codec import MIN_BASE_POINTS, _gmap
+from gauspcc_tpu_torch.codecs.gauspcgc.codec import (
+    MIN_BASE_POINTS, _gmap, _level_geometries)
 from gauspcc_tpu_torch.device import resolve
 from gauspcc_tpu_torch.ops import hostmap, sibconv, sparse
 from gauspcc_tpu_torch.utils import checkpoint
 from gauspcc_tpu_torch.utils.heartbeat import Heartbeat
 from gauspcc_tpu_torch.utils.optim import GroupAdam
-
-_LEGACY = ("the general sparse conv's training levels (pyramid_batches) are "
-           "not ported yet: see ROADMAP.md Queue 1 item 7e")
-
 
 @dataclass
 class TrainConfig:
@@ -159,16 +159,33 @@ def pyramid_batches_sib(xyz_int: np.ndarray, device):
     return out, xyz0.shape[0]
 
 
-def pyramid_batches(xyz_int: np.ndarray, kernel_size: int):
-    """JAX's legacy levels over the general sparse conv (train.py:242)."""
-    raise NotImplementedError(_LEGACY)
+def pyramid_batches(xyz_int: np.ndarray, kernel_size: int, device):
+    """JAX's legacy training levels over the general sparse conv: codec
+    engine 6's geometry (`codec._LevelGeometry`: host-built children and
+    packed window maps, shipped to `device`, adjacent levels sharing a map
+    where their capacities agree). Returns ([(geometry, gt int32 [ccap])]
+    per coded level, n_points)."""
+    dev = torch.device(device)
+    xyz_int = np.asarray(xyz_int, np.int64)
+    xyz0 = sparse.dedupe_lex(xyz_int - xyz_int.min(axis=0))
+    levels = sparse.build_occupancy_pyramid(xyz0, min_points=MIN_BASE_POINTS,
+                                            sorted_unique=True)
+    out = []
+    for d, g in enumerate(_level_geometries(levels, kernel_size, dev)):
+        gt = np.zeros(g.ccap, np.int32)
+        gt[: g.n_child] = levels[d + 1][1]
+        out.append((g, torch.as_tensor(gt, device=dev)))
+    return out, xyz0.shape[0]
 
 
 def _batch_bits(net, net_cfg: model.NetConfig, b):
     """(bits, valid children) of one level: a SibLevel, or a legacy
-    (geometry, gt) tuple, which raises."""
+    (geometry, gt) tuple from `pyramid_batches`."""
     if isinstance(b, tuple):
-        raise NotImplementedError(_LEGACY)
+        g, gt = b
+        return model.level_bits_packed(net, net_cfg, g.po, g.pm, g.p_map,
+                                       g.octant, g.parent_idx, g.child_mask,
+                                       g.c_map, gt)
     return model.level_bits_sib(net, net_cfg, b.pocc, b.pmask, b.p_maps,
                                 b.ppos, b.c_maps, b.cmask, b.gt)
 
@@ -197,7 +214,8 @@ def train_step(net, optimizer: GroupAdam, opt_state: dict,
     """One step on one patch: per level a forward and a backward into
     `.grad`, then one Adam update of the gradients times 1/n_points, in
     place. `prepared`: (batches, n_points) from `pyramid_batches_sib`, which
-    the trainer caches per patch. Returns (opt_state, bpp)."""
+    the trainer caches per patch, or from `pyramid_batches`. Returns
+    (opt_state, bpp)."""
     batches, n_points = (prepared if prepared is not None
                          else pyramid_batches_sib(xyz_int, _device_of(net)))
     leaves = dict(net.named_parameters())
@@ -238,13 +256,18 @@ def setup_logger(log_dir: str, name: str = "gauspcgc") -> logging.Logger:
 
 def _prepared_nbytes(prepared) -> int:
     """Device bytes held by one prepared cloud (geometry-cache accounting).
-    Counts each object once: adjacent levels share their group maps."""
+    Counts each tensor once: adjacent levels share their maps."""
     batches, _ = prepared
     seen: set = set()
     total = 0
     for b in batches:
-        for name in b.__slots__:
-            a = getattr(b, name)
+        if isinstance(b, tuple):
+            g, gt = b
+            parts = [g.po, g.pm, g.octant, g.parent_idx, g.child_mask,
+                     *g.p_map, *g.c_map, gt]
+        else:
+            parts = [getattr(b, name) for name in b.__slots__]
+        for a in parts:
             if id(a) not in seen:
                 seen.add(id(a))
                 total += (a.nbytes if isinstance(a, sibconv.GroupMap)

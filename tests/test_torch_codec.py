@@ -336,19 +336,38 @@ def test_decoder_refuses_a_jax_stream(tmp_path, small_params):
 
 
 def test_unported_engines_batch_coding_and_oversized_clouds_raise(tmp_path, small_params):
+    """What the codec refuses: an unknown engine; a cloud, or a merged batch
+    of clouds, spanning more than the geometry's keys hold; and a stream of
+    any version but the port's 5, 6 and 7 (the JAX package's 2, 3 and 4
+    too), single or batch."""
     _, net = small_params
     xyz = _cloud(np.random.default_rng(0), 100)
-    for geom in ("host", "device"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            codec.compress_point_cloud(xyz, net, str(tmp_path / "a.bin"),
-                                       config=SMALL, geom=geom, device="cpu")
+    with pytest.raises(ValueError, match="the engines are"):
+        codec.compress_point_cloud(xyz, net, str(tmp_path / "a.bin"),
+                                   config=SMALL, geom="window", device="cpu")
     with pytest.raises(ValueError, match="spans"):
         codec.compress_point_cloud(np.array([[0, 0, 0], [1 << 20, 5, 5]]), net,
                                    str(tmp_path / "c.bin"), config=SMALL,
                                    device="cpu")
-    for fn in (codec.compress_point_cloud_batch, codec.decompress_point_cloud_batch):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            fn([xyz], net, str(tmp_path / "b.bin"))
+    wide = [np.array([[0, 0, 0], [1 << 17, 1, 1]])] * 8  # 8 << 18 > 2^20
+    with pytest.raises(ValueError, match="merged batch of 8 clouds spans"):
+        codec.compress_point_cloud_batch(wide, net, str(tmp_path / "w.binb"),
+                                         config=SMALL, device="cpu")
+    for fn, comp, name in ((codec.decompress_point_cloud,
+                            codec.compress_point_cloud, "s.bin"),
+                           (codec.decompress_point_cloud_batch,
+                            codec.compress_point_cloud_batch, "b.binb")):
+        path = str(tmp_path / name)
+        comp(xyz if name == "s.bin" else [xyz, xyz], net, path, config=SMALL,
+             geom="host", device="cpu")
+        raw = bytearray(open(path, "rb").read())
+        assert raw[4] == 6
+        for version in (2, 3, 4, 0, 8, 255):
+            raw[4] = version
+            open(path, "wb").write(bytes(raw))
+            with pytest.raises(ValueError, match=f"version {version} .*reads "
+                               "only version 5 .*, 6 .* and 7"):
+                fn(path, net, config=SMALL, device="cpu")
 
 
 def test_codec_entry_points_default_to_cuda_and_raise_without_it(

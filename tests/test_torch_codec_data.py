@@ -250,7 +250,8 @@ def test_heartbeat_guard_keeps_the_file_warm(tmp_path):
 def test_cli_train_then_compress_and_decompress(tmp_path, capsys):
     """`train` 2 steps on the CPU with
     validation, then code two clouds with the trained best_model.npz and
-    decode them to the same points; batch and engine flags refuse."""
+    decode them to the same points; then both as one `--geom device
+    --batch 2` stream, decoded from its .binb to the same points."""
     rng = np.random.default_rng(6)
     clouds = tmp_path / "clouds"
     os.makedirs(clouds)
@@ -277,11 +278,17 @@ def test_cli_train_then_compress_and_decompress(tmp_path, capsys):
         dec = data.read_points(os.path.join(dec_dir, f"c{i}.ply"))
         assert (set(map(tuple, dec.astype(np.int64).tolist()))
                 == set(map(tuple, orig.astype(np.int64).tolist())))
-    for extra in (["--batch", "2"], ["--geom", "host"], ["--geom", "device"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7e"):
-            cli.main(["compress", *small, "--input", str(clouds / "*.ply"),
-                      "--output_dir", out_dir, *extra])
-    open(os.path.join(out_dir, "x.binb"), "wb").close()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7e"):
-        cli.main(["decompress", *small, "--input", os.path.join(out_dir, "*.binb"),
-                  "--output_dir", dec_dir])
+    # both clouds as one merged stream over device-built geometry
+    batch_dir, batch_dec = str(tmp_path / "binb"), str(tmp_path / "decb")
+    cli.main(["compress", *small, "--input", str(clouds / "*.ply"),
+              "--output_dir", batch_dir, "--geom", "device", "--batch", "2"])
+    binb = os.path.join(batch_dir, "batch_0000.binb")
+    with open(binb, "rb") as f:
+        assert f.read(5)[4] == 7  # the engine's version byte
+    cli.main(["decompress", *small, "--input", os.path.join(batch_dir, "*.binb"),
+              "--output_dir", batch_dec])
+    for i in range(2):
+        orig = data.read_points(str(clouds / f"c{i}.ply"))
+        dec = data.read_points(os.path.join(batch_dec, f"batch_0000_{i:03d}.ply"))
+        assert (set(map(tuple, dec.astype(np.int64).tolist()))
+                == set(map(tuple, orig.astype(np.int64).tolist())))

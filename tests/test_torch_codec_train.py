@@ -311,11 +311,31 @@ def test_geo_cache_byte_accounting():
 
 
 def test_legacy_levels_raise_naming_the_item():
+    """Legacy levels (`pyramid_batches`, JAX's train.py:242) are taken by
+    `cloud_bits` and `train_step`; levels whose maps were built for another
+    kernel size than the network's raise a ValueError naming both, and the
+    byte accounting counts each shared map once."""
     _, cfg, _, net = _pair()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7e"):
-        train.pyramid_batches(np.zeros((10, 3), np.int64), 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7e"):
-        train.cloud_bits(net, cfg, None, prepared=([(None, None)], 10))
+    xyz = _make_cloud(np.random.default_rng(13), 800).astype(np.int64)
+    wrong = train.pyramid_batches(xyz, 5, "cpu")
+    with pytest.raises(ValueError, match="25 kernel rows .* kernel of size 3"):
+        train.cloud_bits(net, cfg, None, prepared=wrong)
+    legacy = train.pyramid_batches(xyz, 3, "cpu")
+    bits, n = train.cloud_bits(net, cfg, None, prepared=legacy)
+    assert n == legacy[1] and np.isfinite(bits) and bits > 0
+    nb = train._prepared_nbytes(legacy)
+    naive = 0
+    for g, gt in legacy[0]:
+        for a in (g.po, g.pm, g.octant, g.parent_idx, g.child_mask,
+                  *g.p_map, *g.c_map, gt):
+            naive += a.numel() * a.element_size()
+    maps = {id(m): m for g, _ in legacy[0] for m in (g.p_map, g.c_map)}
+    shared = sum(a.numel() * a.element_size() for m in maps.values() for a in m)
+    assert len(maps) < 2 * len(legacy[0])  # adjacent levels share a map
+    assert nb < naive
+    arrays = sum(a.numel() * a.element_size() for g, gt in legacy[0]
+                 for a in (g.po, g.pm, g.octant, g.parent_idx, g.child_mask, gt))
+    assert nb == arrays + shared
 
 
 # ---------------------------------------------------------------------------
