@@ -184,6 +184,38 @@ non-zero exit and no result line:
           gradients is printed, not checked), the finest level's forward
           and forward-and-backward ms (CUDA events) and peak memory of
           each in bf16
+  dp      data parallelism on the trained HAC state at full width (the
+          train phase's, white background): (a) this process as the one
+          rank of an NCCL group: at phases 0 and 2 a DP scene step and
+          make_train_step's body from the same state, camera and noise,
+          every gradient, moment and statistic leaf held within 2x the
+          spread of five single steps (K1's backward sums by atomics) plus
+          1e-6 of the leaf's largest value; (c) the DP codec step at
+          NetConfig(32, 5, bf16) with the r5 weights on a KD patch of the
+          bench cloud at the codec trainer's patch size (150,000 points),
+          packed at printed capacities that fit it (and what the default
+          schedule does with it), held the same way against
+          `dp.patch_gradients`; (d) 20 phase-2 DP steps timed against
+          make_train_step in turns (CUDA events), the all-reduce of the
+          step's gradients under `profiling.PhaseTimer` and torch.profiler,
+          its bytes, `device_memory_stats()`; (b) two spawned gloo ranks on
+          the one card (NCCL refuses two ranks on one device) with CUDA
+          tensors: a DP scene step on two cameras against the mean of two
+          single steps' gradients and the sum of their increments, the
+          ranks' leaves bitwise equal, and (c) the DP codec step on two
+          patches against the mean of their gradients; (e) resume:
+          `soak.train` 100 steps straight (twice), 50 with a snapshot
+          (`stop_at`), every tensor of the snapshot reloaded exactly and
+          its generator, rng, order and caps those of the straight run's
+          snapshot at 50, then a resume to 100 whose anchors, caps, camera
+          order and generator states equal the straight run's, whose
+          trained fields drift from it at most 2x as far as the second
+          straight run's, held-out PSNR printed; and the step after a
+          snapshot, straight and resumed three times, every leaf, moment
+          and statistic held within 2x the resumed runs' spread plus 1e-6
+          of its largest value; then `python -m
+          gauspcc_tpu_torch.parallel.dryrun
+          --ranks 1 --backend nccl --device cuda`; K1's launches counted
 
 With --baseline FILE, an earlier tile_blend.cu is built and run on the
 thin Gaussians at the cut (its values outside the tolerance are reported,
@@ -213,7 +245,8 @@ training's for the blend kernels, TC-GS's 600 steps and 50 at phase 3,
 CAT-3DGS's 600 and 20 at each of phases 3, 4 and 5, the scene encode's
 and decode's for rANS; `launches_codec_train` for rANS, the trained
 weights' encode and decode of the held-out cloud; `launches_codec_engines`
-for rANS, the codec_engines phase's encodes and decodes) and,
+for rANS, the codec_engines phase's encodes and decodes; `launches_dp`,
+the dp phase's, in this process and on the gloo ranks) and,
 last, {"ok": true, "device": {...}}. Nothing is written into the tree
 except the builds under gauspcc_tpu_torch/build/ (gitignored); the codecs'
 streams, the handed-off state and the decoded points go to temporary
@@ -235,8 +268,10 @@ from __future__ import annotations
 import argparse
 import copy
 import ctypes
+import itertools
 import json
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -274,8 +309,10 @@ from gauspcc_tpu_torch.models.hac_plus import model as hacp
 from gauspcc_tpu_torch.models.tcgs import codec as tcgs_codec
 from gauspcc_tpu_torch.models.tcgs import model as tcgs
 from gauspcc_tpu_torch.ops import rans, sparse
+from gauspcc_tpu_torch.parallel import dist as pdist
+from gauspcc_tpu_torch.parallel import dp, dp_scene
 from gauspcc_tpu_torch.render import raster, tile_blend
-from gauspcc_tpu_torch.utils import checkpoint, image as img_lib
+from gauspcc_tpu_torch.utils import checkpoint, image as img_lib, profiling
 from gauspcc_tpu_torch.utils.scalars import ScalarLogger
 
 SEED = 0
@@ -402,6 +439,21 @@ CAT_ARM_BYTES = 13_680
 # Laplace CDFs with their expm1, the difference, floor and log2)
 ARM_MACS_PER_PIXEL = 12 * 16 + 3 * 16 * 16 + 16 * 2
 ARM_RATE_OPS_PER_PIXEL = 30
+# dp: single steps from one state, to measure the card's run-to-run spread;
+# the phases of the DP-vs-single checks; timed steps; KD patch size of the
+# DP codec checks; resume at full width,
+# the resumed steps after the snapshot that measure the spread of its
+# first step, and how far the resumed run may drift from the straight one,
+# as a multiple of a second straight run's drift (the card's atomics)
+DP_SPREAD_RUNS = 5
+DP_PHASES = (0, 2)
+DP_TIMED_STEPS = 20
+DP_PROFILED_STEPS = 5  # under torch.profiler (its trace's export is slow)
+DP_PATCH_POINTS = 20_000  # the DP codec checks' KD parts (the time at the
+# codec trainer's own size, data.MAX_PATCH_POINTS, is measured beside them)
+RESUME_STEPS, RESUME_EVERY = 100, 50
+RESUME_SPREAD_RUNS = 3
+RESUME_DRIFT_FACTOR = 2.0
 
 
 def log(msg: str) -> None:
@@ -2806,6 +2858,483 @@ def cat3dgs_phase(dev, scene, serve_psnr: float, others: dict) -> dict:
             "rans_encode": enc_launches, "rans_decode": dec["rans_decode"]}
 
 
+# ---------------------------------------------------------------------------
+# the dp phase: data parallelism, resume, profiling
+# ---------------------------------------------------------------------------
+
+def train_copy(params, rest, opt_state, stats):
+    """A deep copy of a training state, which a step updates in place."""
+    return copy.deepcopy((params, rest, opt_state, stats))
+
+
+def step_record(opt_state, stats, grads) -> dict:
+    """A scene step's gradients, moments and statistics, by kind and leaf."""
+    return {"grad": grads, "mu": opt_state["mu"], "nu": opt_state["nu"],
+            "stat": stats}
+
+
+def train_step_body(tcfg, rcfg, optimizer, topt, params, rest, opt_state,
+                    stats, cam, phase, noise) -> dict:
+    """One step of make_train_step's body, its parts called in its order
+    (step_gradients, apply_gradients, add_stats_) so that the gradients
+    are kept; returns its step_record."""
+    g = hac_train.step_gradients(tcfg, rcfg, topt, params, rest, cam, phase,
+                                 noise, white_background=True)
+    opt_state, _ = hac_train.apply_gradients(
+        optimizer, g.grads, opt_state, hac_train.param_leaves(params))
+    hac_train.add_stats_(stats, g.increments)
+    return step_record(opt_state, stats, g.grads)
+
+
+def trained_record(state, results) -> dict:
+    """A training run's leaves, moments and statistics, by kind and leaf."""
+    return {"leaf": hac_train.param_leaves(hac.split_state(state)[0]),
+            "mu": results["opt_state"]["mu"], "nu": results["opt_state"]["nu"],
+            "stat": results["stats"]}
+
+
+def same_host_states(a: dict, b: dict) -> bool:
+    """Whether two resume snapshots hold the same iteration, generator and
+    numpy rng states, camera order and caps."""
+    return (a["iteration"] == b["iteration"]
+            and torch.equal(a["generator"].get_state(),
+                            b["generator"].get_state())
+            and a["rng"].bit_generator.state == b["rng"].bit_generator.state
+            and a["order"] == b["order"] and a["caps"] == b["caps"])
+
+
+def hold_within_spread(label: str, got: dict, runs: list[dict]) -> None:
+    """Hold every leaf of `got` ({kind: {name: tensor}}) against runs[0]
+    within 2x the run-to-run spread of `runs` (the largest difference
+    between any two of them, leaf by leaf) plus 1e-6 of the leaf's largest
+    |value|; prints the largest spread and the tightest leaf. The card's
+    sums by atomics make two runs of one step differ in the last bits."""
+    worst, widest = (-1.0, "", 0.0, 0.0), (0.0, "none")
+    for kind, leaves in got.items():
+        for name, g in leaves.items():
+            ref = runs[0][kind][name]
+            spread = max(float((a[kind][name] - b[kind][name]).detach().abs()
+                               .max())
+                         for a, b in itertools.combinations(runs, 2))
+            bound = 2 * spread + 1e-6 * float(ref.detach().abs().max())
+            diff = float((g.to(ref.device) - ref).detach().abs().max())
+            if spread > widest[0]:
+                widest = (spread, f"{kind} {name}")
+            ratio = diff / bound if bound > 0 else (0.0 if diff == 0 else np.inf)
+            if ratio > worst[0]:
+                worst = (ratio, f"{kind} {name}", diff, bound)
+            if not diff <= bound:
+                raise RuntimeError(f"{label}: {kind} {name} differs by {diff:.3e}"
+                                   f", beyond its bound {bound:.3e} (spread "
+                                   f"{spread:.3e})")
+    log(f"  {label}: every leaf within 2 x spread + 1e-6 x max; largest "
+        f"spread {widest[0]:.3e} ({widest[1]}), largest difference / bound "
+        f"{worst[0]:.3f} at {worst[1]} ({worst[2]:.3e} / {worst[3]:.3e})")
+
+
+def scene_noise(params, rest, cfg, gen) -> tuple:
+    """One draw of the quantization noise of a step (feat, scaling,
+    offsets), as generate_neural_gaussians draws it."""
+    dev = rest["valid"].device
+    return tuple(torch.rand(shape, generator=gen, device=dev) for shape in (
+        params["anchors"]["anchor_feat"].shape, (rest["valid"].shape[0], 6),
+        params["anchors"]["offset"].shape))
+
+
+def mean_record(a: dict, b: dict, start_stats: dict, optimizer, opt_state,
+                leaves) -> dict:
+    """What a two-rank DP step gives from two single steps' records (taken
+    from zero statistics): the mean gradient, the moments of one update
+    with it from `opt_state`, and `start_stats` plus the summed
+    increments."""
+    grads = {k: (a["grad"][k] + b["grad"][k]) / 2 for k in a["grad"]}
+    st = copy.deepcopy(opt_state)
+    lv = {k: v.detach().clone() for k, v in leaves.items()}
+    st = optimizer.update(dict(grads), st, lv)
+    stats = {k: start_stats[k] + (a["stat"][k] + b["stat"][k])
+             for k in start_stats}
+    return {"grad": grads, "mu": st["mu"], "nu": st["nu"], "stat": stats}
+
+
+def fitting_caps(patches: list[np.ndarray]) -> list[int]:
+    """Per-level parent capacities (powers of two, at least 64) that hold
+    the finest coded levels of every patch, coarse to fine."""
+    counts = []
+    for p in patches:
+        xyz0 = sparse.dedupe_lex(p - p.min(axis=0))
+        levels = sparse.build_occupancy_pyramid(xyz0, min_points=64,
+                                                sorted_unique=True)
+        counts.append([c.shape[0] for c, _ in levels[:-1]])
+    n = max(len(c) for c in counts)
+    caps = []
+    for i in range(n):
+        most = max((c[i - (n - len(c))] for c in counts if i >= n - len(c)),
+                   default=0)
+        cap = 64
+        while cap < most:
+            cap *= 2
+        caps.append(cap)
+    return caps
+
+
+def dp_codec_patches(max_points: int) -> list[dict]:
+    """The first two KD parts of the bench cloud of at most `max_points`
+    points, packed at capacities that fit them; prints the capacities and
+    what the default schedule does."""
+    parts = pcgc_data.kdtree_partition(bench_cloud(), max_points)[:2]
+    caps = fitting_caps(parts)
+    log(f"  codec patches: two KD parts (at most {max_points} points) of the "
+        f"bench cloud, {[len(p) for p in parts]} points; explicit caps {caps}")
+    default = dp.default_capacity_schedule(caps[-1], len(caps))
+    try:
+        dp.pack_patch(parts[0], default)
+        log(f"  default_capacity_schedule({caps[-1]}, {len(caps)}) = {default} "
+            f"holds patch 0")
+    except ValueError as e:
+        log(f"  default_capacity_schedule({caps[-1]}, {len(caps)}) = {default} "
+            f"raises on patch 0: {e}")
+    return [dp.pack_patch(p, caps) for p in parts]
+
+
+def patch_levels(packed: dict, dev) -> list:
+    return [tuple(torch.as_tensor(packed[k][i], device=dev)
+                  for k in ("pc", "po", "pm", "gt"))
+            for i in range(len(packed["pc"]))]
+
+
+def dp_phase(dev, smi: str, scene, tstate, tcfg, topt, tres) -> dict[str, int]:
+    """The data-parallel steps under NCCL (one rank, this process) and gloo
+    (two spawned ranks on the one card) against single-process steps, the
+    DP codec step, the DP step and its all-reduce timed, resume at full
+    width, and the dry run. Returns K1's launches in the phase."""
+    log(f"  card: {smi} (every time below is on it)")
+    params0, rest0 = hac.split_state(tstate)
+    rcfg = tres["rcfg"]
+    optimizer = hac_train.make_optimizer(topt, scene.cameras_extent)
+    cams = [hac_render.CameraArrays.from_camera(c, dev, with_image=True)
+            for c in scene.train_cameras[:2]]
+    codec_cfg = pcgc_model.NetConfig()
+    packed = dp_codec_patches(DP_PATCH_POINTS)
+    secs, mark = {}, [time.perf_counter()]
+
+    def lap(part: str) -> None:  # the phase's seconds by part
+        now = time.perf_counter()
+        secs[part] = now - mark[0]
+        mark[0] = now
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    noises = [scene_noise(params0, rest0, tcfg, gen) for _ in cams]
+    start = (params0, rest0, tres["opt_state"], tres["stats"])
+    tile_blend.launches = 0
+    tile_blend.backward_launches = 0
+
+    def single_runs(cam, phase, noise, zero_stats=False) -> list[dict]:
+        out = []
+        for _ in range(DP_SPREAD_RUNS):
+            p, r, o, s = train_copy(*start)
+            if zero_stats:
+                s = {k: torch.zeros_like(v) for k, v in s.items()}
+            out.append(train_step_body(tcfg, rcfg, optimizer, topt, p, r, o,
+                                       s, cam, phase, noise))
+        return out
+
+    def codec_runs(packs) -> list[dict]:
+        net = convert.load_codec_npz(CODEC_WEIGHTS, codec_cfg, device=dev)
+        out = []
+        for _ in range(DP_SPREAD_RUNS):
+            grads = [dp.patch_gradients(net, codec_cfg, patch_levels(p, dev),
+                                        p["n_points"])[0] for p in packs]
+            out.append({"grad": {k: sum(g[k] for g in grads) / len(grads)
+                                 for k in grads[0]}})
+        return out
+
+    # the gloo pair's inputs, from the trained state before anything moves
+    tmp = tempfile.mkdtemp(prefix="dp-")
+    in_path = f"{tmp}/inputs.npz"
+    pdist.write_inputs(
+        in_path,
+        scene=dp_scene.scene_inputs(
+            tstate, tcfg, "hac", cams, rcfg, topt, scene.cameras_extent, 2,
+            noise=tuple(torch.stack([n[i] for n in noises]) for i in range(3)),
+            opt_state=tres["opt_state"], stats=tres["stats"],
+            white_background=True),
+        codec=dp.codec_inputs(convert.load_codec_npz(
+            CODEC_WEIGHTS, codec_cfg, device=dev), codec_cfg, packed))
+
+    # (a) NCCL, one rank: this process
+    t0 = time.perf_counter()
+    rank_dev = pdist.init(0, 1, "nccl", "cuda", f"{tmp}/rdzv")
+    log(f"  (a) NCCL process group, world 1, on {rank_dev} "
+        f"({time.perf_counter() - t0:.3f} s to initialise)")
+    try:
+        for phase in DP_PHASES:
+            noise = noises[0] if phase > 0 else None
+            runs = single_runs(cams[0], phase, noise)
+            p, r, o, s = train_copy(*start)
+            step = dp_scene.make_dp_scene_step(tcfg, rcfg, optimizer, topt,
+                                               white_background=True)
+            _, o, s, m = step(p, r, o, s, dp_scene.stack_cameras(cams[:1]),
+                              phase=phase, noise=None if noise is None
+                              else tuple(n[None] for n in noise))
+            hold_within_spread(f"(a) phase {phase}, DP step (NCCL, 1 rank) vs "
+                               f"make_train_step's body",
+                               step_record(o, s, m["grads"]), runs)
+            del runs
+
+        lap("(a)")
+
+        # (c) the DP codec step under NCCL, one rank, on patch 0; then once
+        # on a KD part of the codec trainer's own size, timed
+        def codec_dp_step(patch):
+            net = convert.load_codec_npz(CODEC_WEIGHTS, codec_cfg, device=dev)
+            c_opt = dp.adam(1e-3)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, bpp, grads = dp.make_dp_train_step(c_opt, codec_cfg)(
+                net, c_opt.init(dict(net.named_parameters())),
+                dp.stack_patches([patch], dev))
+            torch.cuda.synchronize()
+            return bpp, grads, (time.perf_counter() - t1) * 1e3
+
+        bpp, grads, step_ms = codec_dp_step(packed[0])
+        hold_within_spread("(c) DP codec step (NCCL, 1 rank) vs patch_gradients",
+                           {"grad": grads}, codec_runs(packed[:1]))
+        del grads
+        log(f"  (c) NetConfig{tuple(codec_cfg)} with {CODEC_WEIGHTS.name}: "
+            f"patch 0 at {bpp:.4f} bpp, the DP step {step_ms:.3f} ms (host "
+            f"wall clock, synchronised)")
+        big = dp_codec_patches(pcgc_data.MAX_PATCH_POINTS)[0]
+        big_bpp, _, big_ms = codec_dp_step(big)
+        log(f"  (c) at the codec trainer's patch size (KD parts of at most "
+            f"{pcgc_data.MAX_PATCH_POINTS} points): patch 0 "
+            f"({int(big['n_points'])} points) one DP step {big_ms:.3f} ms "
+            f"(host wall clock, synchronised; {smi}), {big_bpp:.4f} bpp; "
+            f"the checks run at {DP_PATCH_POINTS} points for the phase's time")
+        del big
+        lap("(c) NCCL")
+
+        # (d) 20 DP steps under NCCL, one rank, beside make_train_step
+        p, r, o, s = train_copy(*start)
+        single = hac_train.make_train_step(tcfg, rcfg, optimizer, topt,
+                                           white_background=True)
+        step = dp_scene.make_dp_scene_step(tcfg, rcfg, optimizer, topt,
+                                           white_background=True)
+        stacked = dp_scene.stack_cameras(cams[:1])
+        box = {"o": o, "s": s}
+
+        def dp_step():
+            _, box["o"], box["s"], box["m"] = step(
+                p, r, box["o"], box["s"], stacked, phase=2, generator=gen)
+
+        def single_step():
+            _, box["o"], box["s"], _ = single(p, r, box["o"], box["s"],
+                                              cams[0], phase=2, generator=gen)
+
+        turns = []
+        for who, fn in (("make_train_step", single_step), ("DP step", dp_step),
+                        ("DP step", dp_step), ("make_train_step", single_step)):
+            turns.append(cuda_ms(fn, DP_TIMED_STEPS))
+            log(f"  (d) turn {len(turns)}: {who} {turns[-1]:.4f} ms a step "
+                f"(CUDA events over {DP_TIMED_STEPS} phase-2 steps)")
+        nbytes = pdist.bucket_bytes(box["m"]["grads"]) + 16
+        bucket = {k: v.clone() for k, v in box["m"]["grads"].items()}
+        timer = profiling.PhaseTimer(dev)
+        for _ in range(DP_TIMED_STEPS):
+            with timer.phase("all_reduce_mean_"):
+                pdist.all_reduce_mean_(bucket)
+        with profiling.trace(f"{tmp}/trace", dev) as prof:
+            for _ in range(DP_PROFILED_STEPS):
+                dp_step()
+        coll = [e for e in prof.key_averages()
+                if "nccl" in e.key.lower() or "all_reduce" in e.key.lower()]
+        dev_us = sum(e.device_time_total if hasattr(e, "device_time_total")
+                     else e.cuda_time_total for e in coll)
+        log(f"  (d) DP step {(turns[1] + turns[2]) / 2:.4f} ms, make_train_step "
+            f"{(turns[0] + turns[3]) / 2:.4f} ms (means of the turns; {smi}); "
+            f"all-reduce of {nbytes} bytes a step: "
+            f"{timer.totals['all_reduce_mean_'] / DP_TIMED_STEPS * 1e3:.4f} ms "
+            f"(PhaseTimer, synchronised, the bucket's packing included; "
+            f"{timer.summary()}); under torch.profiler over "
+            f"{DP_PROFILED_STEPS} DP steps "
+            + (", ".join(f"{e.key} x{e.count} {e.cpu_time_total / DP_PROFILED_STEPS / 1e3:.4f} "
+                         f"ms host" for e in coll) or "no collective event")
+            + f", device {dev_us / DP_PROFILED_STEPS / 1e3:.4f} ms a step "
+            f"({'no NCCL kernel: a one-rank all-reduce launches none' if not dev_us else 'NCCL kernels'})")
+        log(f"  (d) device_memory_stats(): {profiling.device_memory_stats()}")
+        lap("(d)")
+        del bucket, box, p, r, o, s
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # (b) and (c): gloo, two ranks on the one card, CUDA tensors
+    t0 = time.perf_counter()
+    pdist.launch((dp_scene.rank_main, dp.rank_main), 2, "gloo", "cuda",
+                 in_path, tmp)
+    log(f"  (b) gloo, 2 ranks on cuda:0 (NCCL refuses two ranks on one "
+        f"device), CUDA tensors reduced as they are, no host staging in the "
+        f"port's code: spawned, one DP scene step and one DP codec step in "
+        f"{time.perf_counter() - t0:.3f} s")
+    outs = []
+    for rk in range(2):
+        with np.load(pdist.output_path(tmp, "scene", rk)) as f:
+            outs.append({k: f[k] for k in f.files})
+    for key in outs[0]:
+        if key.startswith(("leaf/", "mu/", "nu/", "stat/")) and not \
+                np.array_equal(outs[0][key], outs[1][key]):
+            raise RuntimeError(f"(b) the ranks' {key} differ")
+    log(f"  (b) both ranks' leaves, moments and statistics bitwise equal; "
+        f"K1 launches on the ranks: {[int(o['launches']) for o in outs]} "
+        f"forward, {[int(o['backward_launches']) for o in outs]} backward")
+    per_cam = [single_runs(c, 2, n, zero_stats=True) for c, n in zip(cams, noises)]
+    leaves0 = hac_train.param_leaves(params0)
+    combos = [mean_record(a, b, tres["stats"], optimizer, tres["opt_state"],
+                          leaves0) for a, b in zip(*per_cam)]
+    del per_cam
+    got = {kind: {k[len(kind) + 1:]: torch.from_numpy(v).to(dev)
+                  for k, v in outs[0].items() if k.startswith(kind + "/")}
+           for kind in ("grad", "mu", "nu", "stat")}
+    hold_within_spread("(b) phase 2, DP step (gloo, 2 ranks) vs the mean of two "
+                       "single steps", got, combos)
+    del combos, got
+    with np.load(pdist.output_path(tmp, "codec", 0)) as f0, \
+            np.load(pdist.output_path(tmp, "codec", 1)) as f1:
+        for key in f0.files:
+            if key.startswith("param/") and not np.array_equal(f0[key], f1[key]):
+                raise RuntimeError(f"(c) the ranks' {key} differ")
+        cgot = {"grad": {k[len("grad/"):]: torch.from_numpy(f0[k]).to(dev)
+                         for k in f0.files if k.startswith("grad/")}}
+        cbpp = float(f0["bpp"])
+    hold_within_spread("(c) DP codec step (gloo, 2 ranks) vs the mean of two "
+                       "patch_gradients", cgot, codec_runs(packed))
+    log(f"  (c) gloo pair: mean bpp {cbpp:.4f}; both ranks' parameters "
+        f"bitwise equal")
+    scene_launches = (sum(int(o["launches"]) for o in outs),
+                      sum(int(o["backward_launches"]) for o in outs))
+    del outs, cgot
+    shutil.rmtree(tmp, ignore_errors=True)
+    lap("(b) and (c) gloo")
+
+    # (e) resume at full width: straight, cut at 50, resumed to 100; and
+    # the step after a snapshot, straight and resumed
+    with tempfile.TemporaryDirectory() as rtmp:
+        kw = dict(voxel_size=VOXEL_SIZE, white_background=True, log_every=0,
+                  device=dev, log=lambda m: None)
+
+        def run(name, **train_kw):
+            state, rc, _, res = soak.train(
+                scene, RESUME_STEPS, model_dir=f"{rtmp}/{name}", train_kw=dict(
+                    checkpoint_every=RESUME_EVERY, **train_kw), **kw)
+            return state, rc, res
+
+        def snapshot(name, suffix=""):
+            return pipeline.load_training_snapshot(
+                f"{rtmp}/{name}/train_ckpt.pkl{suffix}", rc, dev)
+
+        t0 = time.perf_counter()
+        s_straight, rc, r_straight = run("straight")
+        s_again, _, _, _ = soak.train(scene, RESUME_STEPS, **kw)
+        s_cut, _, r_cut = run("cut", stop_at=RESUME_EVERY)
+        snap = snapshot("cut")
+        exact = [torch.equal(snap["state"]["anchors"][k], s_cut["anchors"][k])
+                 for k in s_cut["anchors"]]
+        exact += [torch.equal(snap["state"][k], s_cut[k])
+                  for k in ("valid", "x_bound_min", "x_bound_max")]
+        exact += [torch.equal(a, b) for a, b in zip(
+            s_cut["nets"].parameters(), snap["state"]["nets"].parameters())]
+        for mom in ("mu", "nu"):
+            exact += [torch.equal(snap["opt_state"][mom][k], v)
+                      for k, v in r_cut["opt_state"][mom].items()]
+        exact += [torch.equal(snap["stats"][k], v)
+                  for k, v in r_cut["stats"].items()]
+        exact += [snap["opt_state"]["count"] == r_cut["opt_state"]["count"],
+                  snap["caps"] == (r_cut["rcfg"].max_tiles_per_gaussian,
+                                   r_cut["rcfg"].max_gaussians_per_tile),
+                  same_host_states(snap, snapshot("straight", ".prev"))]
+        if not all(exact):
+            raise RuntimeError(f"(e) the snapshot reloads {exact.count(False)} "
+                               f"of {len(exact)} values differently")
+        log(f"  (e) snapshot at step {snap['iteration']}: all {len(exact) - 1} "
+            f"tensors and values reload as the cut run left them (the "
+            f"moments' count and the caps among them), and its generator, "
+            f"numpy rng, camera order and caps are those of the straight "
+            f"run's snapshot at step {RESUME_EVERY}")
+        s_res, _, r_res = run("resumed", start_checkpoint=f"{rtmp}/cut/"
+                                                          "train_ckpt.pkl")
+        ends_same = same_host_states(snapshot("straight"), snapshot("resumed"))
+        # the step after a snapshot: straight on from it in memory, and
+        # resumed from it in fresh train_scene calls
+        s_next, _, r_next = run("next", stop_at=RESUME_EVERY + 1)
+        resumed_next = [run(f"next_resumed{i}", stop_at=RESUME_EVERY + 1,
+                            start_checkpoint=f"{rtmp}/next/train_ckpt.pkl")
+                        for i in range(RESUME_SPREAD_RUNS)]
+        wall = time.perf_counter() - t0
+    same = {"anchors": torch.equal(s_res["anchors"]["anchor"],
+                                   s_straight["anchors"]["anchor"]),
+            "valid": torch.equal(s_res["valid"], s_straight["valid"]),
+            "caps": r_res["rcfg"] == r_straight["rcfg"],
+            "order, rng, generator": ends_same}
+
+    def moved(a, b):
+        return max(float((a["anchors"][k] - b["anchors"][k]).detach().abs().max())
+                   for k in hac.TRAINABLE_ANCHOR_FIELDS)
+
+    drift, drift_again = moved(s_res, s_straight), moved(s_again, s_straight)
+    psnr = [pipeline.evaluate(s, tcfg, scene.test_cameras, max_k=EVAL_K,
+                              white_background=True)["psnr"]
+            for s in (s_straight, s_again, s_res)]
+    log(f"  (e) {RESUME_STEPS} steps straight (twice), {RESUME_EVERY} then a "
+        f"resume to {RESUME_STEPS}, {RESUME_EVERY + 1} straight and "
+        f"{RESUME_SPREAD_RUNS} resumes to {RESUME_EVERY + 1} ({wall:.3f} s "
+        f"for the {6 + RESUME_SPREAD_RUNS} runs): at {RESUME_STEPS} the "
+        f"anchors' positions, valid, caps (D="
+        f"{r_res['rcfg'].max_tiles_per_gaussian} K="
+        f"{r_res['rcfg'].max_gaussians_per_tile}), camera order, rng and "
+        f"generator states equal: {same} (the soak's schedule does not "
+        f"densify in {RESUME_STEPS} steps); the trained anchor fields differ "
+        f"from the straight run's by at most {drift:.3e} resumed and "
+        f"{drift_again:.3e} straight again (the card's atomics, through "
+        f"Adam; bound {RESUME_DRIFT_FACTOR:g}x the latter); held-out PSNR "
+        f"{psnr[2]:.4f} dB resumed, {psnr[0]:.4f} / {psnr[1]:.4f} dB straight")
+    if not all(same.values()):
+        raise RuntimeError(f"(e) the resumed run differs from the straight one: "
+                           f"{same}")
+    if not drift <= RESUME_DRIFT_FACTOR * drift_again:
+        raise RuntimeError(f"(e) the resumed run drifts {drift:.3e} from the "
+                           f"straight one, beyond {RESUME_DRIFT_FACTOR:g}x "
+                           f"a second straight run's {drift_again:.3e}")
+    hold_within_spread(
+        f"(e) step {RESUME_EVERY + 1} (phase 1, noise from the restored "
+        f"generator), straight on from the snapshot vs {RESUME_SPREAD_RUNS} "
+        f"resumes", trained_record(s_next, r_next),
+        [trained_record(st, res) for st, _, res in resumed_next])
+    del s_straight, s_again, s_cut, s_res, s_next, resumed_next
+    lap("(e)")
+
+    launches = (tile_blend.launches, tile_blend.backward_launches)
+    # the dry run, as a user runs it
+    t0 = time.perf_counter()
+    dry = subprocess.run(
+        [sys.executable, "-m", "gauspcc_tpu_torch.parallel.dryrun", "--ranks",
+         "1", "--backend", "nccl", "--device", "cuda"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    line = dry.stdout.strip().splitlines()[-1] if dry.stdout.strip() else ""
+    if dry.returncode != 0 or ": ok," not in line:
+        raise RuntimeError(f"dryrun failed (exit {dry.returncode}):\n"
+                           f"{dry.stdout[-2000:]}\n{dry.stderr[-4000:]}")
+    log(f"  dryrun --ranks 1 --backend nccl --device cuda: {line} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    lap("dry run")
+    log("  the phase's seconds by part: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()))
+    log(f"  K1 launches in the phase: {launches[0] + scene_launches[0]} forward, "
+        f"{launches[1] + scene_launches[1]} backward (this process "
+        f"{launches[0]} / {launches[1]}, the gloo ranks {scene_launches[0]} / "
+        f"{scene_launches[1]}; the dry run's rank is not counted)")
+    if not (launches[0] and launches[1] and scene_launches[0] and scene_launches[1]):
+        raise RuntimeError("the DP steps did not launch both blend kernels")
+    return {"tile_blend": launches[0] + scene_launches[0],
+            "tile_blend_backward": launches[1] + scene_launches[1]}
+
+
 def decode_scene_main(tmp: str, device="cuda") -> int:
     """--decode-scene: in this fresh process, load the handed-off family,
     configuration and state, decode the scene twice (the second with
@@ -3473,12 +4002,16 @@ def main() -> int:
     with Phase("codec_engines"):
         engine_launches = codec_engines_phase(dev, sib_bpp)
 
+    with Phase("dp"):
+        dp_launches = dp_phase(dev, smi, scene, tstate, tcfg, topt, tres)
+
     for row in codec_rows:
         row["launches_hac_plus"] = hacp_launches[row["name"]]
         row["launches_tcgs"] = tcgs_launches[row["name"]]
         row["launches_cat3dgs"] = cat_launches[row["name"]]
         row["launches_codec_train"] = train_launches[row["name"]]
         row["launches_codec_engines"] = engine_launches[row["name"]]
+        row["launches_dp"] = 0  # the DP steps code nothing
     log(json.dumps({"kernels": [{
         "name": "tile_blend",
         "route": "cuda",
@@ -3488,6 +4021,7 @@ def main() -> int:
         "launches_hac_plus": hacp_launches["tile_blend"],
         "launches_tcgs": tcgs_launches["tile_blend"],
         "launches_cat3dgs": cat_launches["tile_blend"],
+        "launches_dp": dp_launches["tile_blend"],
         "max_abs_err": frame_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -3503,6 +4037,7 @@ def main() -> int:
         "launches_hac_plus": hacp_launches["tile_blend_backward"],
         "launches_tcgs": tcgs_launches["tile_blend_backward"],
         "launches_cat3dgs": cat_launches["tile_blend_backward"],
+        "launches_dp": dp_launches["tile_blend_backward"],
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

@@ -7,11 +7,15 @@ decode -> evaluate, and writes soak_summary.json.
 
 The numpy RNG calls run in the same order as the JAX package's
 build_scene, so one seed gives the same Gaussians, cameras and seed points
-in both. Not ported (ROADMAP.md Queue 1 item 7): the heartbeat, the scalar
-logger, resume and the divergence abort.
+in both. `main` keeps a heartbeat file (out/heartbeat) and the scalar
+streams (out/scalars.jsonl), writes a resume snapshot every
+`--checkpoint_every` steps (out/train_ckpt.pkl), resumes from one with
+`--resume`, and exits with code 3 when the clean-render canary aborts a
+diverged run (out/DIVERGED.json): a wrapper must not retry that run.
 
     python -m gauspcc_tpu_torch.cli.soak --iters 30000 --out runs/soak_torch \
         [--model hac|hac_plus|tcgs|cat3dgs] [--pcc_ckpt model/gauspcgc/best_model.npz] \
+        [--checkpoint_every 2000] [--resume runs/soak_torch/train_ckpt.pkl] \
         [--device cuda]
 """
 
@@ -117,14 +121,15 @@ def train(scene: SyntheticScene, iters: int, *, model: str = "hac",
           voxel_size: float = 0.01, lmbda: float = 1e-3,
           white_background: bool = True, seed: int = 0, log=print,
           log_every: int = 200, device="cuda", model_dir=None,
-          pcc_params=None, pcc_cfg=None, **opt_overrides):
+          pcc_params=None, pcc_cfg=None, train_kw=None, **opt_overrides):
     """Train the family `model` at its config's full width on a soak scene,
     with the soak's OptConfig (update_until at half the run, at most
     15,000) and, below 30,000 steps, its compressed phase schedule in place
     of the family's. `opt_overrides` replace OptConfig fields; `model_dir`,
     `pcc_params` and `pcc_cfg` go to train_scene (save, encode, decode,
-    evaluate). Returns (state, cfg, opt, results), results as
-    train_scene's."""
+    evaluate); `train_kw` goes to train_scene as it is (resume, snapshots,
+    stop_at, heartbeat, scalar_logger, divergence_drop_db). Returns (state,
+    cfg, opt, results), results as train_scene's."""
     from gauspcc_tpu_torch.models import registry
     from gauspcc_tpu_torch.models.hac import pipeline
     from gauspcc_tpu_torch.models.hac import train as hac_train
@@ -142,7 +147,7 @@ def train(scene: SyntheticScene, iters: int, *, model: str = "hac",
         scene, cfg, opt, seed=seed, log_every=log_every,
         white_background=white_background, log=log, device=dev,
         model_dir=model_dir, pcc_params=pcc_params, pcc_cfg=pcc_cfg,
-        family=family)
+        family=family, **(train_kw or {}))
     return state, cfg, opt, results
 
 
@@ -160,11 +165,16 @@ def main(argv=None):
     p.add_argument("--lmbda", type=float, default=1e-3)
     p.add_argument("--out", default="runs/soak_torch")
     p.add_argument("--pcc_ckpt", default="model/gauspcgc/best_model.npz")
+    p.add_argument("--checkpoint_every", type=int, default=2000)
+    p.add_argument("--resume", default="",
+                   help="a train_ckpt.pkl to resume from")
     p.add_argument("--log_every", type=int, default=200)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
     from gauspcc_tpu_torch import convert
+    from gauspcc_tpu_torch.utils.heartbeat import Heartbeat
+    from gauspcc_tpu_torch.utils.scalars import ScalarLogger
 
     dev = resolve(args.device)
     if not os.path.exists(args.pcc_ckpt):
@@ -172,18 +182,28 @@ def main(argv=None):
     pcc_params = convert.load_codec_npz(args.pcc_ckpt, device=dev)
     white_bg = args.bg == "white"
     os.makedirs(args.out, exist_ok=True)
+    hb = Heartbeat(os.path.join(args.out, "heartbeat"))
     t0 = time.time()
-    scene = build_scene(np.random.default_rng(0), args.hw, args.gt_gaussians,
-                        args.cams, args.seed_points, white_background=white_bg,
-                        device=dev)
+    with hb.guard("build_scene"):
+        scene = build_scene(np.random.default_rng(0), args.hw,
+                            args.gt_gaussians, args.cams, args.seed_points,
+                            white_background=white_bg, device=dev)
     print(f"scene built in {time.time() - t0:.1f}s: "
           f"{len(scene.train_cameras)} train / {len(scene.test_cameras)} "
           f"test cams @ {args.hw}x{args.hw}, {scene.points.shape[0]} seeds")
     t0 = time.time()
-    _, _, _, results = train(
-        scene, args.iters, model=args.model, voxel_size=args.voxel_size,
-        lmbda=args.lmbda, white_background=white_bg, log_every=args.log_every,
-        device=dev, model_dir=args.out, pcc_params=pcc_params)
+    scalars = ScalarLogger(args.out)
+    try:
+        _, _, _, results = train(
+            scene, args.iters, model=args.model, voxel_size=args.voxel_size,
+            lmbda=args.lmbda, white_background=white_bg,
+            log_every=args.log_every, device=dev, model_dir=args.out,
+            pcc_params=pcc_params, train_kw=dict(
+                checkpoint_every=args.checkpoint_every,
+                start_checkpoint=args.resume or None,
+                scalar_logger=scalars, heartbeat=hb))
+    finally:
+        scalars.close()
     wall = time.time() - t0
     from gauspcc_tpu_torch.models.hac.pipeline import RESULT_KEYS
 
@@ -191,8 +211,17 @@ def main(argv=None):
                if k in results and k != "per_view"}
     summary.update(iteration=args.iters, train_wall_s=wall,
                    ms_per_iter=wall / max(args.iters, 1) * 1e3)
+    if "aborted_divergence" in results:
+        summary["aborted_divergence"] = results["aborted_divergence"]
     with open(os.path.join(args.out, "soak_summary.json"), "w") as f:
         json.dump(summary, f, indent=2, default=float)
+    if "aborted_divergence" in results:
+        # a distinct exit code: resuming a collapsed run would collapse
+        # again, so a wrapper loop must not retry it
+        abort = results["aborted_divergence"]
+        print(f"soak ABORTED (divergence at iter {abort['iteration']}): "
+              f"canary {abort['canary_db']:.2f} dB")
+        raise SystemExit(3)
     print(f"soak done in {wall / 60:.1f} min ({summary['ms_per_iter']:.1f} "
           f"ms/iter): PSNR {summary.get('psnr')}, size "
           f"{summary.get('size_mb')} MB")

@@ -12,7 +12,9 @@ evaluate a trained model directory again.
 
 The anchors' codec comes from `--pcc_ckpt`, a GausPcgc `.npz` of the JAX
 package's keys (`convert.load_codec_npz`). cfg.json in the model directory
-records the family and its configuration for `eval`. HAC++ takes the tiny
+records the family and its configuration for `eval`. `--checkpoint_every N`
+writes a resume snapshot every N steps, `--start_checkpoint` resumes from
+one (`pipeline.train_scene`). HAC++ takes the tiny
 channel context on a Blender scene, as the JAX CLI does; CAT-3DGS splits
 the features into two chcm slices of half `--feat_dim` each (the JAX
 config's (25, 25) at its default 50). Runs on the card unless `--device
@@ -26,7 +28,7 @@ import dataclasses
 import json
 import os
 
-_LATER = "see ROADMAP.md Queue 1 item 7"
+_LATER = "see ROADMAP.md Queue 1 item 7g"
 
 
 def _load_pcc(args, device):
@@ -49,11 +51,8 @@ def cmd_train(args):
     from gauspcc_tpu_torch.models.hac import train as hac_train
 
     family = registry.get_family(args.model)
-    for flag, on in (("--gui", args.gui),
-                     ("--start_checkpoint", args.start_checkpoint),
-                     ("--checkpoint_every", args.checkpoint_every)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet ({_LATER})")
+    if args.gui:
+        raise NotImplementedError(f"--gui is not ported yet ({_LATER})")
     dev = resolve(args.device)
     pcc_params, pcc_cfg = _load_pcc(args, dev)
     kw = dict(
@@ -80,7 +79,9 @@ def cmd_train(args):
                    "source_path": args.source_path}, f, indent=2)
     pipeline.train_scene(scene, cfg, opt, white_background=args.white_background,
                          device=dev, model_dir=args.model_path,
-                         pcc_params=pcc_params, pcc_cfg=pcc_cfg, family=family)
+                         pcc_params=pcc_params, pcc_cfg=pcc_cfg, family=family,
+                         start_checkpoint=args.start_checkpoint,
+                         checkpoint_every=args.checkpoint_every)
 
 
 def cmd_eval(args):
@@ -153,9 +154,10 @@ def main(argv=None):
     t.add_argument("--eval", action="store_true", default=True)
     t.add_argument("--white_background", action="store_true")
     t.add_argument("--start_checkpoint", default=None,
-                   help="not ported yet: resume from a training snapshot")
+                   help="resume from a training snapshot (train_ckpt.pkl)")
     t.add_argument("--checkpoint_every", type=int, default=0,
-                   help="not ported yet: write a training snapshot every N steps")
+                   help="write a training snapshot to <model_path>/"
+                   "train_ckpt.pkl every N steps (0: none)")
     t.add_argument("--gui", action="store_true",
                    help="not ported yet: the SIBR remote viewer")
     t.set_defaults(fn=cmd_train)

@@ -2,15 +2,14 @@
 only), encode, decode and evaluate it, rendering the held-out views and
 scoring them against ground truth (counterpart of
 gauspcc_tpu/models/hac/pipeline.py: _raster_cfg :34, select_eval_d :75,
-select_eval_k :94, adapt_caps :121, train_scene :150 with its codec tail
-:365-405, render_sets :414, evaluate :447). The family
+select_eval_k :94, adapt_caps :121, train_scene :150 with its resume
+snapshot, heartbeat, scalar logging and divergence canary :150-362 and
+its codec tail :365-405, render_sets :414, evaluate :447). The family
 (`models/registry.py`) gives the state, the objective, the schedule and
 the codec; every render goes through HAC's scaffold (`cfg.as_hac()`).
 
-LPIPS is not computed and no PNG is written (ROADMAP.md Queue 1 item 7g):
-the renders come back as tensors. `train_scene` has no resume
-checkpoint, GUI, heartbeat or divergence canary (ROADMAP.md Queue 1 item
-7).
+LPIPS is not computed and no PNG is written, and `train_scene` polls no
+GUI (ROADMAP.md Queue 1 item 7g): the renders come back as tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from gauspcc_tpu_torch.models.hac import render as hac_render
 from gauspcc_tpu_torch.models.hac import train as hac_train
 from gauspcc_tpu_torch.render import raster
 from gauspcc_tpu_torch.utils import checkpoint, image as img_lib
+from gauspcc_tpu_torch.utils.heartbeat import DivergenceMonitor, NullHeartbeat
 
 
 def _raster_cfg(cam, max_k: int = 256, max_d: int = 32) -> raster.RasterConfig:
@@ -125,6 +125,65 @@ def adapt_caps(state, cfg: hac.HACConfig, rc: raster.RasterConfig, cam,
 
 
 CAP_ADAPT_EVERY = 500  # steps between checks of the raster caps
+CANARY_VIEWS, CANARY_K, CANARY_D = 2, 1024, 256  # the clean-render canary
+
+
+def _snapshot(params, rest, opt_state, stats, it, gen, rng, order, rcfg):
+    """What a resume needs, as `checkpoint.save_training_checkpoint` pickles
+    it (numpy arrays and Python values)."""
+    return {"params": params, "rest": rest, "opt_state": opt_state,
+            "stats": stats, "iteration": it,
+            "generator": gen.get_state(), "rng": rng.bit_generator.state,
+            "order": list(order),
+            "caps": (rcfg.max_tiles_per_gaussian, rcfg.max_gaussians_per_tile)}
+
+
+def load_training_snapshot(path, cfg, device="cuda") -> dict:
+    """A `train_ckpt.pkl` back on `device`: "state", "opt_state", "stats",
+    "iteration", "generator" (a torch.Generator on the device), "rng"
+    (numpy's), "order" (the cameras still to visit) and "caps" (D, K)."""
+    from gauspcc_tpu_torch import convert
+
+    dev = resolve(device)
+    snap = checkpoint.load_training_checkpoint(path)
+    params, rest = snap["params"], snap["rest"]
+    state = convert.state_from_numpy({
+        "anchors": {**params["anchors"], **rest["anchors"]},
+        "nets": params["nets"], "valid": rest["valid"],
+        "x_bound_min": rest["x_bound_min"],
+        "x_bound_max": rest["x_bound_max"]}, cfg, dev)
+
+    def tensors(tree):
+        return {k: torch.from_numpy(v).to(dev) for k, v in tree.items()}
+
+    opt = snap["opt_state"]
+    gen = torch.Generator(device=dev)
+    gen.set_state(torch.from_numpy(snap["generator"]))
+    rng = np.random.default_rng()
+    rng.bit_generator.state = snap["rng"]
+    return {"state": state, "opt_state": dict(opt, mu=tensors(opt["mu"]),
+                                              nu=tensors(opt["nu"])),
+            "stats": tensors(snap["stats"]), "iteration": snap["iteration"],
+            "generator": gen, "rng": rng, "order": list(snap["order"]),
+            "caps": tuple(snap["caps"])}
+
+
+@torch.no_grad()
+def canary_psnr(state, cfg, cameras, white_background: bool = False):
+    """The clean-render canary: the mean PSNR of the first CANARY_VIEWS
+    held-out views rendered at K CANARY_K and D CANARY_D (the training
+    PSNR renders through quantization noise and the training caps, so it
+    can look healthy while the true render rots). -> (mean, per view)."""
+    cfg = _base(cfg)
+    dev = _device(state)
+    bg = torch.full((3,), 1.0 if white_background else 0.0, device=dev)
+    ps = []
+    for cam in cameras[:CANARY_VIEWS]:
+        img = hac_render.render_image(
+            state, cfg, hac_render.CameraArrays.from_camera(cam, dev),
+            _raster_cfg(cam, CANARY_K, CANARY_D), bg)
+        ps.append(float(img_lib.psnr(img, torch.from_numpy(cam.image).to(dev))))
+    return float(np.mean(ps)), ps
 
 
 def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
@@ -133,25 +192,52 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
                 phase_of_step: Callable[[int], int] | None = None,
                 log=print, device="cuda", model_dir: str | None = None,
                 pcc_params=None, pcc_cfg=None, eval_at_end: bool = True,
-                family=None):
+                family=None, start_checkpoint: str | None = None,
+                checkpoint_every: int = 0, stop_at: int | None = None,
+                scalar_logger=None, heartbeat=None,
+                divergence_drop_db: float = 3.0):
     """Train one scene of `family` (a `registry.Family`, HAC's by default;
     `cfg` is its config type); returns (state, results).
 
     The loop of the JAX package's train_scene: cameras in the order of
-    rng.permutation, the raster caps adapted every CAP_ADAPT_EVERY steps,
-    the anchor bound refitted on entering phase 2, densification every
-    `update_interval` steps between update_from and update_until. Unlike
-    the JAX package's, the anchors are kept in the codec's order from the
-    start and after each densification (`train.sort_anchors`), so the
-    decoded scene renders as the trained one did.
+    rng.permutation, the raster caps adapted at step 1 and every
+    CAP_ADAPT_EVERY steps, the anchor bound refitted on entering phase 2, densification every `update_interval` steps between
+    update_from and update_until. Unlike the JAX package's, the anchors
+    are kept in the codec's order from the start and after each
+    densification (`train.sort_anchors`), so the decoded scene renders as
+    the trained one did.
     `phase_of_step` maps a step to its schedule stage, the family's unless
     given (a compressed one for short runs, cli/soak.py); on entering phase
     2 the family's `extra_init` runs, and its `grad_mask` on every step's
-    gradients. results: "history" (per step: step, phase,
-    loss, l1, psnr, bit_per_param, non-finite gradients, copied to the host
-    once at the end), "densify" (per densification: step and adjust_anchor's
-    info), "caps" (per cap change: step, D, K), "rcfg", "opt_state",
-    "stats".
+    gradients.
+
+    Resume (JAX :150-170, :303-306): with `checkpoint_every` > 0 a snapshot
+    goes to model_dir/train_ckpt.pkl every that many steps (the previous
+    one kept as train_ckpt.pkl.prev): the leaves, the rest of the state,
+    the moments and their count, the statistics, the iteration, the
+    torch.Generator's and numpy rng's states, the cameras still to visit
+    and the raster caps. `start_checkpoint` resumes from such a file;
+    `stop_at` ends the run after that step (a cut run). A resumed run takes
+    the same steps as one that was never cut. JAX's snapshot lacks the
+    caps, so its resume starts from the default caps and adapts them at
+    its first step (pipeline.py:241), where the uncut run does not adapt:
+    that step differs whenever the check would grow a cap there. The port
+    restores the caps and adapts them where the uncut run does.
+
+    The canary (JAX :307-362): at each snapshot the first two test views
+    are rendered at K 1024 and D 256 (`canary_psnr`), logged to
+    `scalar_logger` as eval/psnr_clean, and once the PSNR falls more than
+    `divergence_drop_db` below its running max (`DivergenceMonitor`) the
+    run writes model_dir/DIVERGED.json and stops, returning results with
+    "aborted_divergence" and no codec evaluation. `heartbeat` (a
+    `utils.heartbeat.Heartbeat`) beats every step and guards the blocking
+    sections; `scalar_logger` (`utils.scalars.ScalarLogger`) gets the
+    train/* scalars every `log_every` steps and the eval/* ones at the end.
+
+    results: "history" (per step: step, phase, loss, l1, psnr,
+    bit_per_param, non-finite gradients, copied to the host once at the
+    end), "densify" (per densification: step and adjust_anchor's info),
+    "caps" (per cap change: step, D, K), "rcfg", "opt_state", "stats".
 
     With `model_dir` the trained state is saved there as model.npz (the
     JAX package's keys); with `pcc_params` (a GausPcgc network, `pcc_cfg`
@@ -169,25 +255,43 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
         family = registry.get_family("hac")
     if phase_of_step is None:
         phase_of_step = family.phase_of_step
+    if checkpoint_every and model_dir is None:
+        raise ValueError("checkpoint_every needs a model_dir to write to")
+    if model_dir is not None:
+        os.makedirs(model_dir, exist_ok=True)
+    hb = heartbeat if heartbeat is not None else NullHeartbeat()
+    canary_mon = DivergenceMonitor(drop_db=divergence_drop_db, warmup=1)
     optimizer = hac_train.make_optimizer(opt, scene.cameras_extent)
     cams = scene.train_cameras
     rcfg = _raster_cfg(cams[0])
     cam_arrays = [hac_render.CameraArrays.from_camera(c, dev, with_image=True)
                   for c in cams]
 
-    points = hac.voxelize_points(scene.points, cfg.voxel_size, seed)
-    state = hac.update_anchor_bound(family.init_state(
-        cfg, points, np.random.default_rng(seed), device=dev))
-    log(f"anchors at init: {points.shape[0]}")
+    if start_checkpoint:
+        snap = load_training_snapshot(start_checkpoint, cfg, dev)
+        state, opt_state, stats = (snap["state"], snap["opt_state"],
+                                   snap["stats"])
+        gen, rng, order = snap["generator"], snap["rng"], snap["order"]
+        rcfg = rcfg._replace(max_tiles_per_gaussian=snap["caps"][0],
+                             max_gaussians_per_tile=snap["caps"][1])
+        first_it = snap["iteration"] + 1
+        log(f"resumed from {start_checkpoint} at iteration {snap['iteration']}")
+    else:
+        points = hac.voxelize_points(scene.points, cfg.voxel_size, seed)
+        state = hac.update_anchor_bound(family.init_state(
+            cfg, points, np.random.default_rng(seed), device=dev))
+        log(f"anchors at init: {points.shape[0]}")
+        params, rest = hac.split_state(state)
+        opt_state = optimizer.init(hac_train.param_leaves(params))
+        stats = hac_train.zero_stats(rest["valid"].shape[0], cfg.n_offsets, dev)
+        # train in the order the codec ships the anchors (sort_anchors)
+        state, stats, opt_state = hac_train.sort_anchors(state, stats,
+                                                         opt_state, cfg)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        rng = np.random.default_rng(seed)
+        order = rng.permutation(len(cam_arrays)).tolist()
+        first_it = 1
     params, rest = hac.split_state(state)
-    opt_state = optimizer.init(hac_train.param_leaves(params))
-    stats = hac_train.zero_stats(rest["valid"].shape[0], cfg.n_offsets, dev)
-    # train in the order the codec ships the anchors (sort_anchors)
-    state, stats, opt_state = hac_train.sort_anchors(state, stats, opt_state, cfg)
-    params, rest = hac.split_state(state)
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    rng = np.random.default_rng(seed)
-    order = rng.permutation(len(cam_arrays)).tolist()
 
     def mk_step(rc):
         return hac_train.make_train_step(
@@ -195,12 +299,17 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
             grad_mask=family.grad_mask, white_background=white_background)
 
     step_fn = mk_step(rcfg)
+    ckpt_path = (os.path.join(model_dir, "train_ckpt.pkl")
+                 if model_dir is not None else None)
+    last_it = min(opt.iterations, stop_at) if stop_at else opt.iterations
     history, densify, caps = [], [], []
+    diverged = None
     t0 = time.perf_counter()
-    for it in range(1, opt.iterations + 1):
+    for it in range(first_it, last_it + 1):
         if it == 1 or it % CAP_ADAPT_EVERY == 0:
-            rcfg, grew = adapt_caps(hac.merge_state(params, rest), cfg, rcfg,
-                                    cam_arrays[0], log=log)
+            with hb.guard("adapt_caps"):
+                rcfg, grew = adapt_caps(hac.merge_state(params, rest), cfg,
+                                        rcfg, cam_arrays[0], log=log)
             if grew:
                 step_fn = mk_step(rcfg)
                 caps.append((it, rcfg.max_tiles_per_gaussian,
@@ -216,17 +325,27 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
             if family.extra_init is not None:
                 state = family.extra_init(state, cfg)
             params, rest = hac.split_state(state)
-        params, opt_state, stats, metrics = step_fn(
-            params, rest, opt_state, stats, cam, phase=phase, generator=gen)
+        with hb.guard("step"):
+            params, opt_state, stats, metrics = step_fn(
+                params, rest, opt_state, stats, cam, phase=phase,
+                generator=gen)
+        hb.beat()
         history.append(torch.stack([
             metrics["loss"], metrics["l1"], metrics["psnr"],
             metrics["bit_per_param"],
             metrics["nonfinite_grads"].to(torch.float32)]))
         if log_every and it % log_every == 0:
+            per_it = (time.perf_counter() - t0) / (it - first_it + 1)
             log(f"iter {it} (phase {phase}): loss {float(metrics['loss']):.4f} "
                 f"psnr {float(metrics['psnr']):.2f} "
                 f"bit/param {float(metrics['bit_per_param']):.4f} "
-                f"({(time.perf_counter() - t0) / it * 1e3:.1f} ms/it)")
+                f"({per_it * 1e3:.1f} ms/it)")
+            if scalar_logger is not None:
+                scalar_logger.log(it, {
+                    "train/loss": metrics["loss"], "train/l1": metrics["l1"],
+                    "train/psnr": metrics["psnr"],
+                    "train/bit_per_param": metrics["bit_per_param"],
+                    "train/iter_time": per_it})
         if (opt.start_stat < it < opt.update_until and it > opt.update_from
                 and it % opt.update_interval == 0 and not 3000 <= it < 4000):
             state, stats, opt_state, info = hac_train.adjust_anchor(
@@ -237,8 +356,36 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
             densify.append((it, info))
             log(f"iter {it}: anchors {info['n_anchors']} "
                 f"(+{info['n_added']}/-{info['n_pruned']})")
+        if checkpoint_every and it % checkpoint_every == 0:
+            if os.path.exists(ckpt_path):  # keep one generation of history
+                os.replace(ckpt_path, ckpt_path + ".prev")
+            checkpoint.save_training_checkpoint(ckpt_path, _snapshot(
+                params, rest, opt_state, stats, it, gen, rng, order, rcfg))
+            log(f"iter {it}: checkpoint -> {ckpt_path}")
+            if scene.test_cameras:
+                with hb.guard("canary"):
+                    canary, ps = canary_psnr(hac.merge_state(params, rest),
+                                             cfg, scene.test_cameras,
+                                             white_background)
+                log(f"iter {it}: clean-render canary PSNR {canary:.2f} "
+                    f"{['%.1f' % p for p in ps]}")
+                if scalar_logger is not None:
+                    scalar_logger.log(it, {"eval/psnr_clean": canary})
+                if canary_mon.update(canary):
+                    # the model has collapsed while the training metrics
+                    # may still look alive: keep the evidence and stop
+                    diverged = {"iteration": it, "canary_db": canary,
+                                "canary_best_db": canary_mon.best,
+                                "drop_db": canary_mon.best - canary}
+                    with open(os.path.join(model_dir, "DIVERGED.json"), "w") as f:
+                        json.dump(diverged, f, indent=2)
+                    log(f"iter {it}: DIVERGENCE ABORT: canary {canary:.2f} dB "
+                        f"is {canary_mon.best - canary:.2f} dB below the "
+                        f"running max {canary_mon.best:.2f}; stopping "
+                        f"(checkpoint at {ckpt_path})")
+                    break
     per_step = torch.stack(history).cpu().numpy() if history else np.zeros((0, 5))
-    steps = np.arange(1, len(history) + 1)
+    steps = np.arange(first_it, first_it + len(history))
     results = {
         "history": {
             "step": steps,
@@ -251,12 +398,17 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
     }
     state = hac.merge_state(params, rest)
     if model_dir is not None:
-        os.makedirs(model_dir, exist_ok=True)
         checkpoint.save_pytree(os.path.join(model_dir, "model.npz"), state)
-        if eval_at_end and pcc_params is not None:
+        if diverged is not None:
+            results["aborted_divergence"] = diverged
+        elif eval_at_end and pcc_params is not None:
             results.update(_code_and_evaluate(
                 state, cfg, family, scene, model_dir, pcc_params, pcc_cfg,
-                white_background, log))
+                white_background, log, hb))
+            if scalar_logger is not None:
+                scalar_logger.log(last_it, {
+                    f"eval/{k}": results.get(k)
+                    for k in ("psnr", "ssim", "fps", "size_mb")})
     return state, results
 
 
@@ -265,7 +417,7 @@ RESULT_KEYS = ("psnr", "ssim", "eval_k", "eval_d", "fps", "per_view",
 
 
 def _code_and_evaluate(state, cfg, family, scene, model_dir, pcc_params,
-                       pcc_cfg, white_background, log) -> dict:
+                       pcc_cfg, white_background, log, hb) -> dict:
     """train_scene's tail: estimate (HAC only), encode, decode, evaluate the
     decoded and the float state, write results.json."""
     pcc_cfg = pcc_cfg if pcc_cfg is not None else pcc_model.NetConfig()
@@ -273,16 +425,21 @@ def _code_and_evaluate(state, cfg, family, scene, model_dir, pcc_params,
         _, est_log = hac_codec.estimate_final_bits(state, cfg)
         log(est_log)
     bs_dir = os.path.join(model_dir, "bitstreams")
-    sizes, enc_log = family.conduct_encoding(state, cfg, bs_dir, pcc_params,
-                                             pcc_cfg)
-    log(enc_log)
-    dec_state, dec_log = family.conduct_decoding(state, cfg, bs_dir,
+    with hb.guard("encode"):
+        sizes, enc_log = family.conduct_encoding(state, cfg, bs_dir,
                                                  pcc_params, pcc_cfg)
+    log(enc_log)
+    with hb.guard("decode"):
+        dec_state, dec_log = family.conduct_decoding(state, cfg, bs_dir,
+                                                     pcc_params, pcc_cfg)
     log(dec_log)
     cams = scene.test_cameras or scene.train_cameras[:2]
-    results = evaluate(dec_state, cfg, cams, white_background=white_background,
-                       decoded=True)
-    float_res = evaluate(state, cfg, cams, white_background=white_background)
+    with hb.guard("eval_decoded"):
+        results = evaluate(dec_state, cfg, cams,
+                           white_background=white_background, decoded=True)
+    with hb.guard("eval_float"):
+        float_res = evaluate(state, cfg, cams,
+                             white_background=white_background)
     results["psnr_float"] = float_res["psnr"]
     if results["psnr"] is not None and float_res["psnr"] is not None:
         results["codec_delta_db"] = float_res["psnr"] - results["psnr"]

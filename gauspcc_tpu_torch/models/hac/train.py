@@ -15,6 +15,7 @@ scene codec codes them.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -127,6 +128,92 @@ def zero_stats(capacity: int, n_offsets: int, device="cpu") -> dict:
     }
 
 
+class StepGradients(NamedTuple):
+    """What one camera's objective gives a step: the loss, the objective's
+    aux output, the gradient of every trainable leaf (by name), the
+    screen-space gradient `g_m2d` [cap*K, 2] and this step's increments of
+    the four densification statistics."""
+
+    loss: torch.Tensor
+    aux: dict
+    grads: dict[str, torch.Tensor]
+    g_m2d: torch.Tensor
+    increments: dict[str, torch.Tensor]
+
+
+def step_gradients(cfg, rcfg: raster.RasterConfig, opt: OptConfig, params,
+                   rest, cam, phase: int = 0, noise=None, generator=None, *,
+                   loss_fn=None, grad_mask=None,
+                   white_background: bool = False) -> StepGradients:
+    """The body of a train step up to the update, on one camera: the
+    objective's gradients (the family's frozen groups zeroed by
+    `grad_mask(grads, phase)`) and the statistics' increments
+    (training_statis). The single step and the data-parallel step
+    (`parallel/dp_scene.py`) both run this."""
+    if loss_fn is None:
+        loss_fn = hac_render.training_loss
+    leaves = param_leaves(params)
+    dev = params["anchors"]["offset"].device
+    cap_k = params["anchors"]["offset"].shape[0] * cfg.n_offsets
+    m2d = torch.zeros((cap_k, 2), dtype=torch.float32, device=dev,
+                      requires_grad=True)
+    bg = torch.full((3,), 1.0 if white_background else 0.0, device=dev)
+    with torch.enable_grad():
+        for t in leaves.values():
+            t.requires_grad_(True)
+        loss, aux = loss_fn(
+            params, rest, cfg, cam, rcfg, bg, phase, noise, m2d, opt.lmbda,
+            opt.lambda_dssim, generator=generator)
+        got = torch.autograd.grad(loss, [*leaves.values(), m2d],
+                                  allow_unused=True)
+    g_m2d = got[-1] if got[-1] is not None else torch.zeros_like(m2d)
+    grads = {name: g if g is not None else torch.zeros_like(t)
+             for (name, t), g in zip(leaves.items(), got[:-1])}
+    if grad_mask is not None:
+        grads = grad_mask(grads, phase)
+    with torch.no_grad():
+        k = cfg.n_offsets
+        vis = aux["visible_anchor"] & rest["valid"]
+        opac = torch.clamp_min(aux["neural_opacity"].reshape(-1, k), 0.0)
+        update_filter = aux["g_valid"] & (aux["radii"] > 0)
+        # screen positions are in pixels; the reference's viewspace
+        # gradients are NDC-scaled by half the resolution, which its
+        # densify_grad_threshold is tuned for
+        g_ndc = torch.stack([g_m2d[:, 0] * (0.5 * rcfg.width),
+                             g_m2d[:, 1] * (0.5 * rcfg.height)], -1)
+        gnorm = torch.linalg.norm(g_ndc, dim=-1, keepdim=True)
+        increments = {
+            "opacity_accum": torch.where(vis[:, None],
+                                         opac.sum(1, keepdim=True), 0.0),
+            "anchor_demon": vis[:, None].to(torch.float32),
+            "offset_gradient_accum": torch.where(update_filter[:, None],
+                                                 gnorm, 0.0),
+            "offset_denom": update_filter[:, None].to(torch.float32),
+        }
+    return StepGradients(loss.detach(), aux, grads, g_m2d, increments)
+
+
+def apply_gradients(optimizer: optim.GroupAdam, grads: dict, opt_state: dict,
+                    leaves: dict) -> tuple[dict, torch.Tensor]:
+    """Drop the non-finite gradient components (in `grads`, in place),
+    then one update of the leaves and moments in place. Returns
+    (opt_state, the dropped count).
+
+    A non-finite gradient would poison the Adam moments: the component is
+    dropped (not nan_to_num, which would keep +-inf as +-max)."""
+    nonfinite = sum((~torch.isfinite(g)).sum() for g in grads.values())
+    for k, g in grads.items():
+        grads[k] = torch.where(torch.isfinite(g), g, 0.0)
+    return optimizer.update(grads, opt_state, leaves), nonfinite
+
+
+@torch.no_grad()
+def add_stats_(stats: dict, increments: dict) -> dict:
+    for name, inc in increments.items():
+        stats[name] += inc
+    return stats
+
+
 def make_train_step(cfg, rcfg: raster.RasterConfig, optimizer: optim.GroupAdam,
                     opt: OptConfig, loss_fn=None, grad_mask=None,
                     white_background: bool = False):
@@ -139,64 +226,22 @@ def make_train_step(cfg, rcfg: raster.RasterConfig, optimizer: optim.GroupAdam,
     objective, HAC's by default (same signature and aux); `grad_mask(grads,
     phase)` returns the gradients (by leaf name) with the family's frozen
     groups zeroed. The leaves, the moments and the statistics are updated
-    in place."""
-    if loss_fn is None:
-        loss_fn = hac_render.training_loss
+    in place. metrics (tensors: no host sync): loss, l1, psnr,
+    bit_per_param, nonfinite_grads."""
 
     def step_fn(params, rest, opt_state, stats, cam, phase: int = 0,
                 noise=None, generator=None):
-        leaves = param_leaves(params)
-        dev = params["anchors"]["offset"].device
-        cap_k = params["anchors"]["offset"].shape[0] * cfg.n_offsets
-        m2d = torch.zeros((cap_k, 2), dtype=torch.float32, device=dev,
-                          requires_grad=True)
-        bg = torch.full((3,), 1.0 if white_background else 0.0, device=dev)
-        with torch.enable_grad():
-            for t in leaves.values():
-                t.requires_grad_(True)
-            loss, aux = loss_fn(
-                params, rest, cfg, cam, rcfg, bg, phase, noise, m2d, opt.lmbda,
-                opt.lambda_dssim, generator=generator)
-            got = torch.autograd.grad(loss, [*leaves.values(), m2d],
-                                      allow_unused=True)
-        g_m2d = got[-1] if got[-1] is not None else torch.zeros_like(m2d)
-        grads = {name: g if g is not None else torch.zeros_like(t)
-                 for (name, t), g in zip(leaves.items(), got[:-1])}
-        if grad_mask is not None:
-            grads = grad_mask(grads, phase)
-        # a non-finite gradient would poison the Adam moments: drop the
-        # component (not nan_to_num, which would keep +-inf as +-max) and
-        # report the count
-        nonfinite = sum((~torch.isfinite(g)).sum() for g in grads.values())
-        grads = {k: torch.where(torch.isfinite(g), g, 0.0)
-                 for k, g in grads.items()}
-        opt_state = optimizer.update(grads, opt_state, leaves)
-
-        # densification statistics (training_statis)
-        with torch.no_grad():
-            k = cfg.n_offsets
-            vis = aux["visible_anchor"] & rest["valid"]
-            opac = torch.clamp_min(aux["neural_opacity"].reshape(-1, k), 0.0)
-            stats["opacity_accum"] += torch.where(
-                vis[:, None], opac.sum(1, keepdim=True), 0.0)
-            stats["anchor_demon"] += vis[:, None].to(torch.float32)
-            update_filter = aux["g_valid"] & (aux["radii"] > 0)
-            # screen positions are in pixels; the reference's viewspace
-            # gradients are NDC-scaled by half the resolution, which its
-            # densify_grad_threshold is tuned for
-            g_ndc = torch.stack([g_m2d[:, 0] * (0.5 * rcfg.width),
-                                 g_m2d[:, 1] * (0.5 * rcfg.height)], -1)
-            gnorm = torch.linalg.norm(g_ndc, dim=-1, keepdim=True)
-            stats["offset_gradient_accum"] += torch.where(
-                update_filter[:, None], gnorm, 0.0)
-            stats["offset_denom"] += update_filter[:, None].to(torch.float32)
-        metrics = {
-            "loss": loss.detach(), "l1": aux["l1"].detach(),
-            "psnr": aux["psnr"].detach(),
-            "bit_per_param": aux["bit_per_param"].detach(),
-            "nonfinite_grads": nonfinite,
-        }
-        return params, opt_state, stats, metrics
+        g = step_gradients(cfg, rcfg, opt, params, rest, cam, phase, noise,
+                           generator, loss_fn=loss_fn, grad_mask=grad_mask,
+                           white_background=white_background)
+        opt_state, nonfinite = apply_gradients(optimizer, g.grads, opt_state,
+                                               param_leaves(params))
+        add_stats_(stats, g.increments)
+        return params, opt_state, stats, {
+            "loss": g.loss, "l1": g.aux["l1"].detach(),
+            "psnr": g.aux["psnr"].detach(),
+            "bit_per_param": g.aux["bit_per_param"].detach(),
+            "nonfinite_grads": nonfinite}
 
     return step_fn
 

@@ -1,6 +1,6 @@
-"""Liveness heartbeat for long device jobs: the port's copy of
-gauspcc_tpu/utils/heartbeat.py (`Heartbeat` :34; its `NullHeartbeat` :77
-is not ported: the trainer always keeps a heartbeat file).
+"""Liveness heartbeat and divergence canary for long device jobs: the
+port's copy of gauspcc_tpu/utils/heartbeat.py (`Heartbeat` :34,
+`NullHeartbeat` :77, `DivergenceMonitor` :87).
 
 An external stall watchdog kills a run whose log goes quiet for too
 long, while a long blocking section (a first step, a validation sweep,
@@ -65,3 +65,36 @@ class Heartbeat:
             t.join(timeout=5.0)
             self.beat()
 
+
+class NullHeartbeat:
+    """No-op stand-in, so call sites never branch on None."""
+
+    def beat(self) -> None:
+        pass
+
+    @contextlib.contextmanager
+    def guard(self, label: str = ""):
+        yield
+
+
+class DivergenceMonitor:
+    """Abort decision for the clean-render canary: tracks the running max
+    of a quality scalar (held-out PSNR) and returns True, abort, once a
+    reading falls more than ``drop_db`` below it. The first ``warmup``
+    readings never abort, so a noisy first checkpoint cannot trip it."""
+
+    def __init__(self, drop_db: float = 3.0, warmup: int = 1):
+        self.drop_db = float(drop_db)
+        self.warmup = int(warmup)
+        self.best = float("-inf")
+        self.n = 0
+        self.last = None
+
+    def update(self, value: float) -> bool:
+        self.n += 1
+        self.last = float(value)
+        if self.last > self.best:
+            self.best = self.last
+        if self.n <= self.warmup:
+            return False
+        return (self.best - self.last) > self.drop_db

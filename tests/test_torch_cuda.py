@@ -927,3 +927,46 @@ def test_codec_trained_then_coded_on_the_card(cuda_device, tmp_path):
     assert out["num_points"] == got["num_points"] == xyz.shape[0]
     np.testing.assert_array_equal(
         np.unique(got["point_cloud"].astype(np.int64), axis=0), xyz)
+
+
+@pytest.mark.cuda
+def test_dp_under_nccl_with_one_rank(cuda_device, tmp_path):
+    """NCCL with one rank on the card: the dry run (one DP scene step at
+    phase 2 and one DP codec step, both finite, in a spawned rank), then in
+    this process a mean- and a sum-reduce that leave the tensors exact and
+    a one-rank DP codec step whose reduced gradients are the patch's own,
+    within 2x the spread of three single-process gradients plus 1e-6 of
+    each leaf's largest value (the card's atomics in the gathers'
+    backward make two runs differ)."""
+    from gauspcc_tpu_torch.codecs.gauspcgc import model as pcc
+    from gauspcc_tpu_torch.parallel import dist as pdist, dp, dryrun
+
+    loss, bpp = dryrun.run(1, "nccl", "cuda")
+    assert np.isfinite(loss) and np.isfinite(bpp)
+    dev = pdist.init(0, 1, "nccl", "cuda", str(tmp_path / "rdzv"))
+    try:
+        t = {"a": torch.randn((5, 3), device=dev), "b": torch.ones((), device=dev)}
+        want = {k: v.clone() for k, v in t.items()}
+        pdist.all_reduce_mean_(t)
+        pdist.all_reduce_sum_(t)
+        for k in t:
+            assert torch.equal(t[k], want[k]), k
+        cfg = pcc.NetConfig(8, 3)
+        net = pcc.init_net(cfg, 0).to(dev)
+        rng = np.random.default_rng(0)
+        pts = np.unique(rng.integers(0, 32, size=(800, 3)), axis=0)[:400]
+        patch = dp.pack_patch(pts.astype(np.int64),
+                              dp.default_capacity_schedule(512, 3))
+        levels = [tuple(torch.as_tensor(patch[k][i], device=dev)
+                        for k in ("pc", "po", "pm", "gt")) for i in range(3)]
+        runs = [dp.patch_gradients(net, cfg, levels, patch["n_points"])
+                for _ in range(3)]
+        opt = dp.adam(1e-3)
+        step = dp.make_dp_train_step(opt, cfg)
+        _, got_bpp, got = step(net, opt.init(dict(net.named_parameters())),
+                               dp.stack_patches([patch], dev))
+        assert got_bpp == pytest.approx(float(runs[0][1]), rel=1e-6)
+        chip_smoke.hold_within_spread("one-rank DP codec step", {"grad": got},
+                                      [{"grad": g} for g, _ in runs])
+    finally:
+        torch.distributed.destroy_process_group()

@@ -153,9 +153,11 @@ def test_hac_cli_trains_and_evaluates_a_colmap_scene_on_cpu(tmp_path, small_code
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, small_codec):
-    """The SIBR viewer (--gui) and a missing codec checkpoint; every family
-    is ported (--model cat3dgs: tests/test_torch_cat3dgs_pipeline.py)."""
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """The SIBR viewer (--gui, ROADMAP.md Queue 1 item 7g) and a missing
+    codec checkpoint; every family is ported (--model cat3dgs:
+    tests/test_torch_cat3dgs_pipeline.py), and --start_checkpoint /
+    --checkpoint_every are (tests/test_torch_resume.py)."""
+    with pytest.raises(NotImplementedError, match="item 7g"):
         cli.main(["train", "-s", str(tmp_path), "-m", str(tmp_path), "--gui",
                   "--device", "cpu"])
     with pytest.raises(SystemExit):
@@ -172,9 +174,22 @@ def test_entry_points_default_to_the_card(tmp_path):
         soak.main(["--out", str(tmp_path / "soak")])
 
 
-def test_soak_main_writes_the_summary_on_cpu(tmp_path):
+def jsonl_scalars_only(monkeypatch):
+    """soak.main's ScalarLogger without its TensorBoard writer: importing
+    torch.utils.tensorboard loads TensorFlow where it is installed, which
+    takes seconds a test process, and no test reads the TensorBoard
+    files."""
+    from gauspcc_tpu_torch.utils import scalars
+
+    real = scalars.ScalarLogger
+    monkeypatch.setattr(scalars, "ScalarLogger", lambda log_dir: real(
+        log_dir, use_tensorboard=False))
+
+
+def test_soak_main_writes_the_summary_on_cpu(tmp_path, monkeypatch):
     """soak.main at a smoke size, with the codec the r5 soak coded
     its anchors with (model/gauspcgc, the default --pcc_ckpt)."""
+    jsonl_scalars_only(monkeypatch)
     out = str(tmp_path / "soak")
     soak.main(["--iters", "20", "--hw", "32", "--gt_gaussians", "150",
                "--cams", "9", "--seed_points", "400", "--voxel_size", "0.05",
