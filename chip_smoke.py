@@ -216,6 +216,27 @@ non-zero exit and no result line:
           of its largest value; then `python -m
           gauspcc_tpu_torch.parallel.dryrun
           --ranks 1 --backend nccl --device cuda`; K1's launches counted
+  tools   on the train phase's HAC state and scene: (a) `evaluate` with
+          `out_dir` on the 3 held-out views at K = 1024: a file per view
+          (.npy where PIL is missing, else .png) equal to the view's render
+          on the host, the LPIPS surrogate finite and positive per view and
+          its variant "vgg_random_v1", view 0's LPIPS against the same
+          module's on the CPU within 1e-4 relative, LPIPS ms per view (CUDA
+          events); (b) a viewer on localhost served by 3 steps of
+          `train_scene(gui=)` on the scene: the frame equal to
+          image_to_bytes of render_view on the state the poll saw, the
+          verify string the model directory; (c) `soak_eval.main --device
+          cuda` on a 20-step `soak.train` snapshot written here:
+          soak_summary.json with the JAX package's keys, its sizes those of
+          a second encode of the snapshot's state, its stream decoded again
+          here exactly; (d) `sweep.main --device cuda` on a COLMAP scene
+          written here (4 images at 64 px, 200 points), 2 lambdas,
+          30 steps each: summary.json with both runs, each with a finite
+          PSNR and a size; (e) the factorized coder on the card (its bytes
+          equal the CPU's, its decode exact) and `sparse_conv_window` on the
+          bench cloud's voxels in bf16 against `sparse_conv_apply` over
+          `nmap_from_packed` of the same packed map, both timed; every
+          kernel's launches in the phase counted
 
 With --baseline FILE, an earlier tile_blend.cu is built and run on the
 thin Gaussians at the cut (its values outside the tolerance are reported,
@@ -246,11 +267,11 @@ CAT-3DGS's 600 and 20 at each of phases 3, 4 and 5, the scene encode's
 and decode's for rANS; `launches_codec_train` for rANS, the trained
 weights' encode and decode of the held-out cloud; `launches_codec_engines`
 for rANS, the codec_engines phase's encodes and decodes; `launches_dp`,
-the dp phase's, in this process and on the gloo ranks) and,
-last, {"ok": true, "device": {...}}. Nothing is written into the tree
-except the builds under gauspcc_tpu_torch/build/ (gitignored); the codecs'
-streams, the handed-off state and the decoded points go to temporary
-directories.
+the dp phase's, in this process and on the gloo ranks; `launches_tools`,
+the tools phase's) and, last, {"ok": true, "device": {...}}. Nothing is
+written into the tree except the builds under gauspcc_tpu_torch/build/
+(gitignored); the codecs' streams, the handed-off state, the decoded
+points and the tools phase's runs go to temporary directories.
 
 With --decode BIN --out NPY it only decodes BIN (a .bin of any of the
 port's engines, or a .binb batch stream, whose clouds go to NPY as the
@@ -272,9 +293,12 @@ import itertools
 import json
 import pickle
 import shutil
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from collections import Counter
@@ -285,13 +309,13 @@ import numpy as np
 import torch
 
 from gauspcc_tpu_torch import convert, native
-from gauspcc_tpu_torch.cli import soak
+from gauspcc_tpu_torch.cli import soak, soak_eval, sweep
 from gauspcc_tpu_torch.codecs.gauspcgc import cli as pcgc_cli
 from gauspcc_tpu_torch.codecs.gauspcgc import codec as pcgc_codec
 from gauspcc_tpu_torch.codecs.gauspcgc import data as pcgc_data
 from gauspcc_tpu_torch.codecs.gauspcgc import model as pcgc_model
 from gauspcc_tpu_torch.codecs.gauspcgc import train as pcgc_train
-from gauspcc_tpu_torch.core import cdf
+from gauspcc_tpu_torch.core import cdf, entropy
 from gauspcc_tpu_torch.core.quant import ste_multistep
 from gauspcc_tpu_torch.fields import triplane as tri
 from gauspcc_tpu_torch.models import registry
@@ -308,11 +332,13 @@ from gauspcc_tpu_torch.models.hac_plus import codec as hacp_codec
 from gauspcc_tpu_torch.models.hac_plus import model as hacp
 from gauspcc_tpu_torch.models.tcgs import codec as tcgs_codec
 from gauspcc_tpu_torch.models.tcgs import model as tcgs
-from gauspcc_tpu_torch.ops import rans, sparse
+from gauspcc_tpu_torch.ops import entropy_coding as ec
+from gauspcc_tpu_torch.ops import hostmap, rans, sparse
 from gauspcc_tpu_torch.parallel import dist as pdist
 from gauspcc_tpu_torch.parallel import dp, dp_scene
 from gauspcc_tpu_torch.render import raster, tile_blend
-from gauspcc_tpu_torch.utils import checkpoint, image as img_lib, profiling
+from gauspcc_tpu_torch.utils import checkpoint, image as img_lib, lpips
+from gauspcc_tpu_torch.utils import network_gui, profiling
 from gauspcc_tpu_torch.utils.scalars import ScalarLogger
 
 SEED = 0
@@ -454,6 +480,19 @@ DP_PATCH_POINTS = 20_000  # the DP codec checks' KD parts (the time at the
 RESUME_STEPS, RESUME_EVERY = 100, 50
 RESUME_SPREAD_RUNS = 3
 RESUME_DRIFT_FACTOR = 2.0
+# the tools phase
+LPIPS_CPU_RTOL = 1e-4  # the card's LPIPS of a view against the CPU's
+TOOLS_GUI_STEPS = 3
+TOOLS_SOAK_STEPS = 20
+TOOLS_SWEEP_SCENE = (4, 64, 200)  # images, their size, points
+TOOLS_SWEEP_LMBDAS = "0.004,0.0005"
+TOOLS_SWEEP_STEPS = 30
+TOOLS_FACT_SHAPE = (100_000, 8)  # values coded by the factorized model
+# gauspcc_tpu/cli/soak_eval.py:84-93: the JAX package's summary keys (its
+# evaluate's, pipeline.py:487-499, with the surrogate's LPIPS, minus
+# per_view) with the size and the iteration
+SOAK_SUMMARY_KEYS = {"psnr", "ssim", "eval_k", "eval_d", "lpips_surrogate",
+                     "lpips_variant", "fps", "size_bits", "size_mb", "iteration"}
 
 
 def log(msg: str) -> None:
@@ -3335,6 +3374,369 @@ def dp_phase(dev, smi: str, scene, tstate, tcfg, topt, tres) -> dict[str, int]:
             "tile_blend_backward": launches[1] + scene_launches[1]}
 
 
+def rotmat_to_qvec(r: np.ndarray) -> np.ndarray:
+    """(w, x, y, z) of a rotation matrix, the inverse of colmap.qvec2rotmat."""
+    k = np.array([
+        [r[0, 0] - r[1, 1] - r[2, 2], 0, 0, 0],
+        [r[0, 1] + r[1, 0], r[1, 1] - r[0, 0] - r[2, 2], 0, 0],
+        [r[0, 2] + r[2, 0], r[1, 2] + r[2, 1], r[2, 2] - r[0, 0] - r[1, 1], 0],
+        [r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1],
+         r[0, 0] + r[1, 1] + r[2, 2]]]) / 3.0
+    vals, vecs = np.linalg.eigh(k)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return q * np.sign(q[0]) if q[0] != 0 else q
+
+
+def write_colmap_scene(root: Path, n_images: int, wh: int, n_points: int,
+                       seed: int = SEED) -> None:
+    """A COLMAP scene as the sweep reads it: sparse/0/{cameras, images,
+    points3D}.bin (one PINHOLE camera, orbit views of the origin, seeded
+    points in [-0.6, 0.6]^3) and images/*.png of smooth seeded colours."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    sparse_dir, img_dir = root / "sparse" / "0", root / "images"
+    sparse_dir.mkdir(parents=True)
+    img_dir.mkdir()
+    focal = wh * 1.2
+    with open(sparse_dir / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, wh, wh))
+        f.write(struct.pack("<4d", focal, focal, wh / 2, wh / 2))
+    yy, xx = np.mgrid[0:wh, 0:wh].astype(np.float64) / wh
+    with open(sparse_dir / "images.bin", "wb") as f:
+        f.write(struct.pack("<Q", n_images))
+        for i in range(n_images):
+            cam = soak._orbit_camera(i, 2 * np.pi * i / n_images, wh, radius=3.0)
+            name = f"frame_{i:03d}.png"
+            f.write(struct.pack("<i", i + 1))
+            f.write(struct.pack("<7d", *rotmat_to_qvec(cam.R.T), *cam.T))
+            f.write(struct.pack("<i", 1) + name.encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))
+            phase = rng.random(3) * 2 * np.pi
+            rgb = 0.5 + 0.4 * np.sin(np.stack([3 * xx, 2 * yy, 2 * (xx + yy)], -1)
+                                     + phase)
+            Image.fromarray((rgb * 255).astype(np.uint8)).save(img_dir / name)
+    xyz = rng.random((n_points, 3)) * 1.2 - 0.6
+    with open(sparse_dir / "points3D.bin", "wb") as f:
+        f.write(struct.pack("<Q", n_points))
+        for i in range(n_points):
+            f.write(struct.pack("<Q3d3Bd", i + 1, *xyz[i],
+                                *rng.integers(0, 256, 3).tolist(), 0.5))
+            f.write(struct.pack("<Q", 0))
+
+
+def viewer_message(cam) -> bytes:
+    """The SIBR viewer's request for `cam`'s view: the view matrix with the
+    axis flips NetworkGUI.receive undoes."""
+    m = cam.world_view_transform.astype(np.float32).copy()
+    m[:, 1] = -m[:, 1]
+    m[:, 2] = -m[:, 2]
+    payload = json.dumps({
+        "resolution_x": cam.width, "resolution_y": cam.height, "train": True,
+        "keep_alive": False, "scaling_modifier": 1.0, "fov_x": cam.fovx,
+        "fov_y": cam.fovy, "z_near": 0.01, "z_far": 100.0,
+        "view_matrix": m.reshape(-1).tolist()}).encode()
+    return struct.pack("<I", len(payload)) + payload
+
+
+def recv_exact(sock: socket.socket, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("the training side closed early")
+        buf += chunk
+    return buf
+
+
+def check_scene_decode(dec, state, cfg, values, data) -> list[str]:
+    """The decoded HAC state against what the encoder wrote: anchors,
+    masks, features, scalings, offsets and hash signs exactly."""
+    n = values["feat"].shape[0]
+    a = dec["anchors"]
+    pairs = {
+        "anchor": (a["anchor"][:n], data["anchor_int"].astype(np.float32) * cfg.voxel_size),
+        "mask": (a["mask"][:n], data["mask"]),
+        "feat": (a["anchor_feat"][:n], values["feat"]),
+        "scaling": (a["scaling"][:n], values["scaling"]),
+        "offset": (a["offset"][:n], values["offset"]),
+        "hash": (dec["nets"].tables.flat().to(torch.int8),
+                 hac.encoding_params_flat(state).to(torch.int8)),
+    }
+    for name, (got, want) in pairs.items():
+        want = want.detach().cpu().numpy() if torch.is_tensor(want) else want
+        if not np.array_equal(got.detach().cpu().numpy(), want):
+            raise RuntimeError(f"decoded {name} differs from the encoder's")
+    if int(dec["valid"].sum()) != n:
+        raise RuntimeError("the decoded state holds another anchor count")
+    return [f"{k} {tuple(v[0].shape)}" for k, v in pairs.items()]
+
+
+def tools_phase(dev, smi: str, scene, tstate, tcfg) -> dict[str, int]:
+    """The evaluation outputs, the viewer, soak_eval, sweep and the last
+    functions ported (the factorized coder, sparse_conv_window) on the
+    card, on the train phase's HAC state and scene. Returns the phase's
+    launches of each kernel."""
+    log(f"  card: {smi} (every time below is on it)")
+    launches = dict.fromkeys(("tile_blend", "tile_blend_backward",
+                              "rans_encode", "rans_decode"), 0)
+
+    def count():
+        tile_blend.launches = tile_blend.backward_launches = 0
+        rans.encode_launches = rans.decode_launches = 0
+
+    def counted() -> tuple[int, int, int, int]:
+        got = (tile_blend.launches, tile_blend.backward_launches,
+               rans.encode_launches, rans.decode_launches)
+        for k, v in zip(launches, got):
+            launches[k] += v
+        return got
+
+    secs, mark = {}, [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        secs[part] = now - mark[0]
+        mark[0] = now
+
+    net = convert.load_codec_npz(SCENE_CODEC_WEIGHTS, pcgc_model.NetConfig(),
+                                 device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) evaluate's renders and LPIPS
+        count()
+        res = pipeline.evaluate(tstate, tcfg, scene.test_cameras, max_k=EVAL_K,
+                                white_background=True, out_dir=str(tmp / "renders"))
+        torch.cuda.synchronize()
+        fwd = counted()[0]
+        files = sorted(p.name for p in (tmp / "renders").iterdir())
+        kind = files[0].rsplit(".", 1)[-1] if files else "none"
+        if files != [f"{i:05d}.{kind}" for i in range(len(scene.test_cameras))]:
+            raise RuntimeError(f"evaluate wrote {files}")
+        for name, img in zip(files, res["renders"]):
+            host = img.cpu().numpy()
+            if kind == "npy":
+                same = np.array_equal(np.load(tmp / "renders" / name), host)
+            else:
+                from PIL import Image
+
+                same = np.array_equal(
+                    np.asarray(Image.open(tmp / "renders" / name)),
+                    np.clip(host.transpose(1, 2, 0) * 255.0, 0, 255).astype(np.uint8))
+            if not same:
+                raise RuntimeError(f"renders/{name} is not the view's render")
+        if res["lpips_variant"] != "vgg_random_v1":
+            raise RuntimeError(f"LPIPS variant {res['lpips_variant']!r}")
+        per_view = [v["lpips_surrogate"] for v in res["per_view"].values()]
+        if not all(np.isfinite(v) and v > 0 for v in per_view):
+            raise RuntimeError(f"LPIPS per view {per_view}")
+        fn = pipeline._lpips_for(dev)
+        gts = [torch.from_numpy(c.image).to(dev) for c in scene.test_cameras]
+        lp_ms = [cuda_ms(lambda: fn(img, gt), 3) for img, gt in zip(res["renders"], gts)]
+        t0 = time.perf_counter()
+        cpu_fn = lpips.load_default_lpips(device="cpu")
+        on_cpu = float(cpu_fn(res["renders"][0].cpu(), gts[0].cpu()))
+        cpu_s = time.perf_counter() - t0
+        rel = abs(per_view[0] - on_cpu) / on_cpu
+        log(f"  (a) evaluate at K={res['eval_k']} D={res['eval_d']}: "
+            f"{len(files)} .{kind} renders, each equal to its view's render on "
+            f"the host; PSNR {res['psnr']:.4f} dB, SSIM {res['ssim']:.4f}, "
+            f"lpips_surrogate {res['lpips_surrogate']:.6f} "
+            f"({', '.join(f'{v:.6f}' for v in per_view)}), variant "
+            f"{res['lpips_variant']}; LPIPS ms per view (CUDA events, 3 runs "
+            f"after a warm-up) {', '.join(f'{m:.4f}' for m in lp_ms)}; view 0 "
+            f"card {per_view[0]:.8f} vs CPU {on_cpu:.8f}: rel {rel:.3e} (limit "
+            f"{LPIPS_CPU_RTOL:g}; the CPU's module built and run in "
+            f"{cpu_s:.3f} s); tile_blend launches {fwd}")
+        if not rel <= LPIPS_CPU_RTOL:
+            raise RuntimeError("the card's LPIPS disagrees with the CPU's")
+        if fwd == 0:
+            raise RuntimeError("evaluate did not launch the tile_blend kernel")
+        lap("(a)")
+
+        # (b) the viewer: a frame served between training steps
+        gui = network_gui.NetworkGUI("127.0.0.1", 0)
+        cam = scene.test_cameras[0]
+        viewer = socket.create_connection(
+            ("127.0.0.1", gui.listener.getsockname()[1]), timeout=120)
+        viewer.sendall(viewer_message(cam))  # read at the first poll
+        got, polled = {}, []
+
+        def read_frame():
+            try:
+                got["img"] = recv_exact(viewer, cam.width * cam.height * 3)
+                n = struct.unpack("<I", recv_exact(viewer, 4))[0]
+                got["verify"] = recv_exact(viewer, n).decode()
+            finally:
+                viewer.close()
+
+        real_poll = pipeline._poll_gui
+
+        def poll(gui_, state, cfg_, verify, log=print):
+            if not polled:
+                polled.append(copy.deepcopy(state))
+            real_poll(gui_, state, cfg_, verify, log=log)
+
+        reader = threading.Thread(target=read_frame, daemon=True)
+        reader.start()
+        model_dir = str(tmp / "gui")
+        gui_logs = []
+        count()
+        pipeline._poll_gui = poll
+        try:
+            pipeline.train_scene(
+                scene, tcfg, hac_train.OptConfig(iterations=TOOLS_GUI_STEPS),
+                white_background=True, device=dev, model_dir=model_dir,
+                eval_at_end=False, log_every=0, gui=gui, log=gui_logs.append)
+        finally:
+            pipeline._poll_gui = real_poll
+            gui.close()
+        reader.join(timeout=120)
+        torch.cuda.synchronize()
+        fwd, bwd, _, _ = counted()
+        if reader.is_alive() or "img" not in got:
+            raise RuntimeError("the viewer got no frame")
+        ca = hac_render.CameraArrays(
+            viewmatrix=torch.from_numpy(cam.world_view_transform.astype(np.float32)).to(dev),
+            camera_center=torch.from_numpy(
+                np.linalg.inv(cam.world_view_transform.astype(np.float32))[3, :3]
+                .astype(np.float32)).to(dev))
+        rcfg = raster.RasterConfig(cam.height, cam.width, float(np.tan(cam.fovx * 0.5)),
+                                   float(np.tan(cam.fovy * 0.5)),
+                                   max_gaussians_per_tile=256)
+        with torch.no_grad():
+            want = network_gui.image_to_bytes(hac_render.render_view(
+                polled[0], tcfg, ca, rcfg, torch.zeros(3, device=dev))["render"]
+                .cpu().numpy())
+        log(f"  (b) viewer on localhost: a {cam.width}x{cam.height} frame "
+            f"({len(got['img'])} bytes) served before step 1 of "
+            f"{TOOLS_GUI_STEPS}, verify {got['verify']!r}; equal to "
+            f"image_to_bytes(render_view) of the state it polled: "
+            f"{got['img'] == want}; tile_blend launches {fwd}, backward {bwd}; "
+            f"the viewer's disconnect logged: "
+            f"{any('viewer disconnected' in m for m in gui_logs)}")
+        if got["img"] != want or got["verify"] != model_dir:
+            raise RuntimeError("the viewer's frame or verify string is wrong")
+        if fwd == 0:
+            raise RuntimeError("the viewer's steps did not launch tile_blend")
+        lap("(b)")
+
+        # (c) soak_eval on a snapshot written here
+        run = tmp / "soak"
+        count()
+        soak.train(scene, TOOLS_SOAK_STEPS, voxel_size=VOXEL_SIZE,
+                   white_background=True, device=dev, model_dir=str(run),
+                   log_every=0, log=lambda m: None,
+                   train_kw=dict(checkpoint_every=TOOLS_SOAK_STEPS))
+        soak_eval.main(["--run", str(run), "--hw", str(HW), "--gt_gaussians",
+                        str(N_GT), "--cams", str(N_CAMS), "--seed_points",
+                        str(N_SEED), "--voxel_size", str(VOXEL_SIZE), "--pcc_ckpt",
+                        str(SCENE_CODEC_WEIGHTS), "--device", dev.type])
+        with open(run / "soak_summary.json") as f:
+            summary = json.load(f)
+        snap = pipeline.load_training_snapshot(str(run / "train_ckpt.pkl"), tcfg, dev)
+        values = {}
+        sizes, _ = hac_codec.conduct_encoding(snap["state"], tcfg, str(tmp / "again"),
+                                              net, values=values)
+        dec, _ = hac_codec.conduct_decoding(snap["state"], tcfg,
+                                            str(run / "bitstreams"), net)
+        exact = check_scene_decode(dec, snap["state"], tcfg, values,
+                                   hac_codec._gather_sorted_attributes(snap["state"], tcfg))
+        torch.cuda.synchronize()
+        fwd, bwd, enc, dcd = counted()
+        log(f"  (c) soak_eval --device cuda on a {TOOLS_SOAK_STEPS}-step "
+            f"snapshot: keys {sorted(summary)}; PSNR {summary['psnr']:.4f} dB, "
+            f"size {summary['size_mb']:.4f} MB ({summary['size_bits']['total']} "
+            f"bits; a second encode of the snapshot's state: {sizes['total']}); "
+            f"its stream decoded again here, exact: {', '.join(exact)}; "
+            f"launches: tile_blend {fwd}, backward {bwd}, rans_encode {enc}, "
+            f"rans_decode {dcd}")
+        if set(summary) != SOAK_SUMMARY_KEYS:
+            raise RuntimeError(f"soak_summary.json keys {sorted(summary)}")
+        if summary["size_bits"] != sizes or summary["iteration"] != TOOLS_SOAK_STEPS:
+            raise RuntimeError("soak_eval's sizes or iteration disagree")
+        if not np.isfinite(summary["psnr"]) or enc == 0 or dcd == 0:
+            raise RuntimeError("soak_eval gave no PSNR or launched no rANS")
+        lap("(c)")
+
+        # (d) sweep on a COLMAP scene written here
+        write_colmap_scene(tmp / "data" / "scene", *TOOLS_SWEEP_SCENE)
+        count()
+        sweep.main(["--data_root", str(tmp / "data"), "--dataset", "tandt",
+                    "--scenes", "scene", "--lmbdas", TOOLS_SWEEP_LMBDAS,
+                    "--iterations", str(TOOLS_SWEEP_STEPS), "--out_root",
+                    str(tmp / "runs"), "--pcc_ckpt", str(SCENE_CODEC_WEIGHTS),
+                    "--device", dev.type])
+        with open(tmp / "runs" / "summary.json") as f:
+            swept = json.load(f)
+        torch.cuda.synchronize()
+        fwd, bwd, enc, dcd = counted()
+        log(f"  (d) sweep --device cuda, {TOOLS_SWEEP_SCENE[0]} images at "
+            f"{TOOLS_SWEEP_SCENE[1]} px, {TOOLS_SWEEP_SCENE[2]} points, "
+            f"{TOOLS_SWEEP_STEPS} steps a lambda: {json.dumps(swept)}; "
+            f"launches: tile_blend {fwd}, backward {bwd}, rans_encode {enc}, "
+            f"rans_decode {dcd}")
+        want_runs = [f"scene/l{float(x)}" for x in TOOLS_SWEEP_LMBDAS.split(",")]
+        if list(swept) != want_runs or not all(
+                v["psnr"] is not None and np.isfinite(v["psnr"]) and v["size_mb"] > 0
+                for v in swept.values()):
+            raise RuntimeError("the sweep's summary lacks a run, a PSNR or a size")
+        lap("(d)")
+
+        # (e) the factorized coder and sparse_conv_window
+        gen = torch.Generator().manual_seed(SEED)
+        params = entropy.init_factorized_params(TOOLS_FACT_SHAPE[1], generator=gen)
+        x = torch.from_numpy(np.random.default_rng(SEED).laplace(
+            0, 6, TOOLS_FACT_SHAPE).astype(np.float32))
+        params_dev = {k: [v.to(dev) for v in vs] for k, vs in params.items()}
+        card_bits = ec.encode_factorized(params_dev, x.to(dev), 1.0, str(tmp / "f_card.b"))
+        cpu_bits = ec.encode_factorized(params, x, 1.0, str(tmp / "f_cpu.b"))
+        back = ec.decode_factorized(params_dev, *TOOLS_FACT_SHAPE, 1.0, str(tmp / "f_card.b"))
+        same_bytes = (tmp / "f_card.b").read_bytes() == (tmp / "f_cpu.b").read_bytes()
+        exact_fact = bool(torch.equal(back.cpu(), torch.round(x)))
+        log(f"  (e) factorized coder, {TOOLS_FACT_SHAPE[0]} x {TOOLS_FACT_SHAPE[1]} "
+            f"values: {card_bits} bits on the card, {cpu_bits} on the CPU, bytes "
+            f"equal {same_bytes}, the card's decode exact {exact_fact} "
+            f"(device {back.device})")
+        if not (same_bytes and exact_fact and back.device.type == dev.type):
+            raise RuntimeError("the factorized coder on the card disagrees")
+        pts = bench_cloud()
+        coords = sparse.dedupe_lex(pts - pts.min(axis=0))
+        n = coords.shape[0]
+        k = pcgc_model.NetConfig().kernel_size
+        lo, codes = hostmap.build_map_packed(coords, n, k, n)
+        packed = sparse.PackedLo(*(torch.from_numpy(a).to(dev)
+                                   for a in sparse.pack_lo_np(lo)))
+        wmap = sparse.WindowMap(sparse.expand_lo(packed, n),
+                                torch.from_numpy(codes.astype(np.int32)).to(dev))
+        cg = torch.Generator(device=dev).manual_seed(SEED)
+        c = pcgc_model.NetConfig().channels
+        feats = torch.randn((n, c), generator=cg, device=dev).to(torch.bfloat16)
+        w = 0.05 * torch.randn((k**3, c, c), generator=cg, device=dev)
+        b = torch.randn((c,), generator=cg, device=dev)
+        nmap = sparse.nmap_from_packed(wmap, k)
+        win = sparse.sparse_conv_window(feats, wmap, w, b)
+        dense = sparse.sparse_conv_apply(feats, nmap, w, b)
+        err = float((win.float() - dense.float()).abs().max())
+        scale = float(dense.float().abs().max())
+        win_ms = cuda_ms(lambda: sparse.sparse_conv_window(feats, wmap, w, b), 5)
+        dense_ms = cuda_ms(lambda: sparse.sparse_conv_apply(feats, nmap, w, b), 5)
+        log(f"  (e) sparse_conv_window on the bench cloud's {n} voxels (k {k}, "
+            f"C {c}, bf16, the window map from pack_lo_np and expand_lo) against "
+            f"sparse_conv_apply over nmap_from_packed: max |diff| {err:.4e} "
+            f"of the largest |y| {scale:.4e} (limit one bf16 step, 2^-7 of "
+            f"it); {win_ms:.4f} ms against {dense_ms:.4f} ms (CUDA events, 5 "
+            f"runs after a warm-up)")
+        if not err <= 2.0**-7 * scale:
+            raise RuntimeError("sparse_conv_window disagrees with the dense conv")
+        lap("(e)")
+    log("  the phase's seconds by part: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()))
+    log(f"  launches in the phase: {launches}")
+    return launches
+
+
 def decode_scene_main(tmp: str, device="cuda") -> int:
     """--decode-scene: in this fresh process, load the handed-off family,
     configuration and state, decode the scene twice (the second with
@@ -4005,6 +4407,9 @@ def main() -> int:
     with Phase("dp"):
         dp_launches = dp_phase(dev, smi, scene, tstate, tcfg, topt, tres)
 
+    with Phase("tools"):
+        tools_launches = tools_phase(dev, smi, scene, tstate, tcfg)
+
     for row in codec_rows:
         row["launches_hac_plus"] = hacp_launches[row["name"]]
         row["launches_tcgs"] = tcgs_launches[row["name"]]
@@ -4012,6 +4417,7 @@ def main() -> int:
         row["launches_codec_train"] = train_launches[row["name"]]
         row["launches_codec_engines"] = engine_launches[row["name"]]
         row["launches_dp"] = 0  # the DP steps code nothing
+        row["launches_tools"] = tools_launches[row["name"]]
     log(json.dumps({"kernels": [{
         "name": "tile_blend",
         "route": "cuda",
@@ -4022,6 +4428,7 @@ def main() -> int:
         "launches_tcgs": tcgs_launches["tile_blend"],
         "launches_cat3dgs": cat_launches["tile_blend"],
         "launches_dp": dp_launches["tile_blend"],
+        "launches_tools": tools_launches["tile_blend"],
         "max_abs_err": frame_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -4038,6 +4445,7 @@ def main() -> int:
         "launches_tcgs": tcgs_launches["tile_blend_backward"],
         "launches_cat3dgs": cat_launches["tile_blend_backward"],
         "launches_dp": dp_launches["tile_blend_backward"],
+        "launches_tools": tools_launches["tile_blend_backward"],
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,

@@ -1,9 +1,9 @@
-"""Scene-scale soak (own copy of gauspcc_tpu/cli/soak.py:37-130, the
-"textured" kind, and :139-246): clustered coloured Gaussians rendered from
-orbit cameras with the port's rasterizer as ground truth, plus seed points
-for the anchors; `train` trains a family (HAC, HAC++, TC-GS or CAT-3DGS)
-on it, and `main` runs the whole pipeline, train -> estimate -> encode ->
-decode -> evaluate, and writes soak_summary.json.
+"""Scene-scale soak (own copy of gauspcc_tpu/cli/soak.py:37-130, with its
+"textured", "smooth" and "hard" kinds, and :139-246): clustered coloured
+Gaussians rendered from orbit cameras with the port's rasterizer as ground
+truth, plus seed points for the anchors; `train` trains a family (HAC,
+HAC++, TC-GS or CAT-3DGS) on it, and `main` runs the whole pipeline, train
+-> estimate -> encode -> decode -> evaluate, and writes soak_summary.json.
 
 The numpy RNG calls run in the same order as the JAX package's
 build_scene, so one seed gives the same Gaussians, cameras and seed points
@@ -62,22 +62,37 @@ def _orbit_camera(uid, angle, hw, radius=4.0, height=0.6, fov=0.9):
 @torch.no_grad()
 def build_scene(rng: np.random.Generator, hw: int, n_gt: int, n_cams: int,
                 n_seed: int, white_background: bool = True,
-                device="cuda") -> SyntheticScene:
+                device="cuda", kind: str = "textured") -> SyntheticScene:
+    """The soak scene of `kind`: "textured" (smooth colour plus
+    mid-frequency texture that only per-anchor features can carry, the
+    soak's), "smooth" (low-frequency colour only) or "hard" (random colours,
+    for stress runs)."""
     dev = resolve(device)
-    # clustered coloured Gaussian field: smooth colour plus mid-frequency
-    # texture that only per-anchor features can carry
+    if kind not in ("textured", "smooth", "hard"):
+        raise ValueError(f"unknown soak scene kind {kind!r}")
+    # clustered coloured Gaussian field
     n_clusters = max(8, n_gt // 150)
     centers = rng.random((n_clusters, 3)) * 1.6 - 0.8
     idx = rng.integers(0, n_clusters, n_gt)
     means = (centers[idx] + rng.normal(0, 0.12, (n_gt, 3))).astype(np.float32)
     lo_f = np.array([[2.1, 0.7, 1.3], [0.9, 2.4, 1.7], [1.5, 1.1, 2.6]])
-    hi_f = np.array([[5.3, 7.1, 4.2], [6.7, 3.9, 5.8], [4.4, 6.1, 7.3]])
     phases = np.array([0.0, 2.1, 4.2])
-    colors = (0.5 + 0.27 * np.sin(means @ lo_f.T + phases)
-              + 0.18 * np.sin(means @ hi_f.T + 1.3 * phases + 0.7))
-    colors = np.clip(colors, 0.0, 1.0).astype(np.float32)
-    scales = (rng.random((n_gt, 3)) * 0.06 + 0.03).astype(np.float32)
-    opac = (rng.random((n_gt, 1)) * 0.45 + 0.5).astype(np.float32)
+    if kind == "hard":
+        colors = rng.random((n_gt, 3)).astype(np.float32)
+        scales = (rng.random((n_gt, 3)) * 0.05 + 0.015).astype(np.float32)
+        opac = (rng.random((n_gt, 1)) * 0.6 + 0.3).astype(np.float32)
+    else:
+        if kind == "smooth":
+            colors = (0.5 + 0.45 * np.sin(means @ lo_f.T + phases)).astype(
+                np.float32)
+        else:
+            hi_f = np.array([[5.3, 7.1, 4.2], [6.7, 3.9, 5.8],
+                             [4.4, 6.1, 7.3]])
+            colors = (0.5 + 0.27 * np.sin(means @ lo_f.T + phases)
+                      + 0.18 * np.sin(means @ hi_f.T + 1.3 * phases + 0.7))
+            colors = np.clip(colors, 0.0, 1.0).astype(np.float32)
+        scales = (rng.random((n_gt, 3)) * 0.06 + 0.03).astype(np.float32)
+        opac = (rng.random((n_gt, 1)) * 0.45 + 0.5).astype(np.float32)
     rots = np.tile([1.0, 0, 0, 0], (n_gt, 1)).astype(np.float32)
 
     gt = {name: torch.from_numpy(v).to(dev) for name, v in (

@@ -13,7 +13,9 @@ layers/<i>/<lin|res_lin>, field/gains, the PCA frame) and its mlp_chcm
 list its indices.
 `codec_params_from_numpy` and `load_codec_npz` do the same for the codec's
 network (`codecs/gauspcgc/model.GausPcgcNet`), whose conv weights keep
-their [k^3, Cin, Cout] layout.
+their [k^3, Cin, Cout] layout. `factorized_params_from_numpy` carries the
+fully factorized entropy model's parameters (`core/entropy.py`), which
+keep their layout.
 """
 
 from __future__ import annotations
@@ -123,3 +125,21 @@ def load_codec_npz(path, cfg=None, device="cuda"):
     with np.load(path) as data:
         return codec_params_from_numpy({k: data[k] for k in data.files}, cfg,
                                        device)
+
+
+def factorized_params_from_numpy(tree: Mapping, device="cuda") -> dict:
+    """The factorized model's {"matrices", "biases", "factors"} lists from
+    JAX's (`gauspcc_tpu/core/entropy.py` `init_factorized_params`: lists of
+    arrays, or the flat "matrices/0" keys `save_pytree` writes) as float32
+    tensors on `device`."""
+    dev = resolve(device)
+    out = {}
+    for name in ("matrices", "biases", "factors"):
+        if name in tree:
+            leaves = list(tree[name])
+        else:
+            n = sum(1 for k in tree if k.startswith(name + "/"))
+            leaves = [tree[f"{name}/{i}"] for i in range(n)]
+        out[name] = [torch.from_numpy(np.array(v, np.float32)).to(dev)
+                     for v in leaves]
+    return out

@@ -1,12 +1,12 @@
 """Train-time entropy models: differentiable bit estimators (counterpart of
-gauspcc_tpu/core/entropy.py:20-94).
+gauspcc_tpu/core/entropy.py).
 
 What the families' training objectives reach: `low_bound` with its
 custom gradient, the quantized-Gaussian bits (HAC, TC-GS, CAT-3DGS), the
-Gaussian-mixture bits (HAC++) and the binary-size estimate. No ported
-family reaches the Bernoulli and factorized estimators (ROADMAP.md Queue
-1 item 7h). All functions return per-element bits; callers sum and
-normalise.
+Gaussian-mixture bits (HAC++) and the binary-size estimate. The Bernoulli
+bits and the fully factorized (Balle) model, which no family trains with,
+complete the JAX package's set. All functions return per-element bits;
+callers sum and normalise.
 """
 
 from __future__ import annotations
@@ -82,6 +82,14 @@ def gaussian_mixture_bits(x, means, scales, probs, q=1.0, x_mean=None):
     return -torch.log2(low_bound(likelihood))
 
 
+def bernoulli_bits(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Bits of x in {-1, +1} under P(+1) = p (p clipped to [1e-6, 1 - 1e-6])."""
+    p = torch.clamp(p, 1e-6, 1.0 - 1e-6)
+    pos_mask = (1.0 + x) / 2.0
+    neg_mask = (1.0 - x) / 2.0
+    return -torch.log2(p) * pos_mask + -torch.log2(1.0 - p) * neg_mask
+
+
 def binary_size_bits(binary01: torch.Tensor):
     """Global-p1 binary entropy size estimate. Returns (p1, total_bits),
     +32 bits for storing p1."""
@@ -90,3 +98,58 @@ def binary_size_bits(binary01: torch.Tensor):
     p1 = torch.clamp(pos / total, 1e-6, 1.0 - 1e-6)
     bits = pos * (-torch.log2(p1)) + (total - pos) * (-torch.log2(1.0 - p1)) + 32.0
     return p1, bits
+
+
+# ---------------------------------------------------------------------------
+# the fully factorized (Balle) entropy model
+# ---------------------------------------------------------------------------
+
+def init_factorized_params(channels: int, filters=(3, 3, 3),
+                           init_scale: float = 10.0,
+                           generator: torch.Generator | None = None) -> dict:
+    """{"matrices", "biases", "factors"}: lists of float32 CPU tensors [C,
+    d_out, d_in] (JAX's constant init), [C, d_out, 1] (U(-0.5, 0.5) from
+    `generator`, not JAX's draws) and [C, d_out, 1] (zeros), for the
+    channel widths (1, *filters, 1)."""
+    dims = (1,) + tuple(int(f) for f in filters) + (1,)
+    scale = init_scale ** (1.0 / (len(filters) + 1))
+    matrices, biases, factors = [], [], []
+    for i in range(len(filters) + 1):
+        init = math.log(math.expm1(1.0 / scale / dims[i + 1]))
+        matrices.append(torch.full((channels, dims[i + 1], dims[i]), init,
+                                   dtype=torch.float32))
+        u = torch.rand((channels, dims[i + 1], 1), generator=generator,
+                       dtype=torch.float32)
+        biases.append(u - 0.5)
+        if i < len(filters):
+            factors.append(torch.zeros((channels, dims[i + 1], 1),
+                                       dtype=torch.float32))
+    return {"matrices": matrices, "biases": biases, "factors": factors}
+
+
+def factorized_logits_cumulative(params: dict, logits: torch.Tensor
+                                 ) -> torch.Tensor:
+    """logits [C, 1, N] -> [C, 1, N]: each channel's monotone scalar flow
+    (softplus matrices, biases, tanh factors)."""
+    n_layers = len(params["matrices"])
+    for i in range(n_layers):
+        matrix = torch.nn.functional.softplus(params["matrices"][i])
+        logits = torch.matmul(matrix, logits) + params["biases"][i]
+        if i < len(params["factors"]):
+            logits = logits + torch.tanh(params["factors"][i]) * torch.tanh(logits)
+    return logits
+
+
+def factorized_bits(params: dict, x: torch.Tensor, q=1.0) -> torch.Tensor:
+    """Bits of the quantized values x [N, C] under the factorized model, of
+    step q (a number, or a tensor [N, C]) -> [N, C]."""
+    xt = x.T[:, None, :]  # [C, 1, N]
+    qt = q.T[:, None, :] if isinstance(q, torch.Tensor) and q.dim() == 2 else q
+    lower = factorized_logits_cumulative(params, xt - 0.5 * (1.0 / qt))
+    upper = factorized_logits_cumulative(params, xt + 0.5 * (1.0 / qt))
+    sign = -torch.sign(lower + upper).detach()
+    diff = torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower)
+    # |diff| with jnp.abs's gradient at 0 (+1), as `_bin_mass`
+    likelihood = torch.where(diff >= 0, diff, -diff)
+    bits = -torch.log2(low_bound(likelihood))
+    return bits[:, 0, :].T

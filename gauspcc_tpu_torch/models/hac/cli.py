@@ -14,7 +14,10 @@ The anchors' codec comes from `--pcc_ckpt`, a GausPcgc `.npz` of the JAX
 package's keys (`convert.load_codec_npz`). cfg.json in the model directory
 records the family and its configuration for `eval`. `--checkpoint_every N`
 writes a resume snapshot every N steps, `--start_checkpoint` resumes from
-one (`pipeline.train_scene`). HAC++ takes the tiny
+one (`pipeline.train_scene`). `--gui` serves the SIBR remote viewer on
+`--ip`:`--port` while training. Both commands write the decoded renders to
+<model_dir>/test_renders (train also the float ones to float_renders) and
+results.json with PSNR, SSIM and LPIPS. HAC++ takes the tiny
 channel context on a Blender scene, as the JAX CLI does; CAT-3DGS splits
 the features into two chcm slices of half `--feat_dim` each (the JAX
 config's (25, 25) at its default 50). Runs on the card unless `--device
@@ -27,9 +30,6 @@ import argparse
 import dataclasses
 import json
 import os
-
-_LATER = "see ROADMAP.md Queue 1 item 7g"
-
 
 def _load_pcc(args, device):
     from gauspcc_tpu_torch import convert
@@ -51,8 +51,6 @@ def cmd_train(args):
     from gauspcc_tpu_torch.models.hac import train as hac_train
 
     family = registry.get_family(args.model)
-    if args.gui:
-        raise NotImplementedError(f"--gui is not ported yet ({_LATER})")
     dev = resolve(args.device)
     pcc_params, pcc_cfg = _load_pcc(args, dev)
     kw = dict(
@@ -77,11 +75,21 @@ def cmd_train(args):
         json.dump({"model": args.model, "hac": cfg._asdict(),
                    "opt": dataclasses.asdict(opt),
                    "source_path": args.source_path}, f, indent=2)
-    pipeline.train_scene(scene, cfg, opt, white_background=args.white_background,
-                         device=dev, model_dir=args.model_path,
-                         pcc_params=pcc_params, pcc_cfg=pcc_cfg, family=family,
-                         start_checkpoint=args.start_checkpoint,
-                         checkpoint_every=args.checkpoint_every)
+    gui = None
+    if args.gui:
+        from gauspcc_tpu_torch.utils.network_gui import NetworkGUI
+
+        gui = NetworkGUI(args.ip, args.port)
+    try:
+        pipeline.train_scene(
+            scene, cfg, opt, white_background=args.white_background,
+            device=dev, model_dir=args.model_path, pcc_params=pcc_params,
+            pcc_cfg=pcc_cfg, family=family,
+            start_checkpoint=args.start_checkpoint,
+            checkpoint_every=args.checkpoint_every, gui=gui)
+    finally:
+        if gui is not None:
+            gui.close()
 
 
 def cmd_eval(args):
@@ -112,8 +120,9 @@ def cmd_eval(args):
     dec_state, dec_log = family.conduct_decoding(state, cfg, bs_dir,
                                                  pcc_params, pcc_cfg)
     print(dec_log)
-    results = pipeline.evaluate(dec_state, cfg, scene.test_cameras,
-                                decoded=True)
+    results = pipeline.evaluate(
+        dec_state, cfg, scene.test_cameras, decoded=True,
+        out_dir=os.path.join(args.model_path, "test_renders"))
     results = {k: results[k] for k in pipeline.RESULT_KEYS if k in results}
     results["size_bits"] = sizes
     results["size_mb"] = sizes["total"] / hac_codec.BIT2MB
@@ -159,7 +168,9 @@ def main(argv=None):
                    help="write a training snapshot to <model_path>/"
                    "train_ckpt.pkl every N steps (0: none)")
     t.add_argument("--gui", action="store_true",
-                   help="not ported yet: the SIBR remote viewer")
+                   help="serve the SIBR remote viewer while training")
+    t.add_argument("--ip", default="127.0.0.1")
+    t.add_argument("--port", type=int, default=6009)
     t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("eval")

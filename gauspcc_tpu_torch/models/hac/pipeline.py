@@ -8,15 +8,22 @@ its codec tail :365-405, render_sets :414, evaluate :447). The family
 (`models/registry.py`) gives the state, the objective, the schedule and
 the codec; every render goes through HAC's scaffold (`cfg.as_hac()`).
 
-LPIPS is not computed and no PNG is written, and `train_scene` polls no
-GUI (ROADMAP.md Queue 1 item 7g): the renders come back as tensors.
+`evaluate` scores every view with PSNR, SSIM and LPIPS (`utils/lpips.py`:
+the pretrained VGG16 weights when a weights file is present, else the
+seeded surrogate, reported as "lpips_surrogate") and, given `out_dir`,
+writes each render there as a PNG (`.npy` where PIL is missing), as the
+JAX package's evaluate does (:447-503, _save_png :543). `train_scene`
+serves the SIBR remote viewer between steps when given a
+`utils.network_gui.NetworkGUI` (`_poll_gui`, JAX :505).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import time
+import traceback
 from typing import Callable
 
 import numpy as np
@@ -195,7 +202,7 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
                 family=None, start_checkpoint: str | None = None,
                 checkpoint_every: int = 0, stop_at: int | None = None,
                 scalar_logger=None, heartbeat=None,
-                divergence_drop_db: float = 3.0):
+                divergence_drop_db: float = 3.0, gui=None):
     """Train one scene of `family` (a `registry.Family`, HAC's by default;
     `cfg` is its config type); returns (state, results).
 
@@ -233,6 +240,8 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
     `utils.heartbeat.Heartbeat`) beats every step and guards the blocking
     sections; `scalar_logger` (`utils.scalars.ScalarLogger`) gets the
     train/* scalars every `log_every` steps and the eval/* ones at the end.
+    `gui` (a `utils.network_gui.NetworkGUI`) is polled before every step
+    (`_poll_gui`), the model directory as the viewer's verify string.
 
     results: "history" (per step: step, phase, loss, l1, psnr,
     bit_per_param, non-finite gradients, copied to the host once at the
@@ -244,10 +253,12 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
     its NetConfig) and `eval_at_end` the scene is then estimated (HAC
     only), encoded into model_dir/bitstreams by the family's codec,
     decoded, and both the decoded and the float state are evaluated on the
-    test views (the first two training views when there are none). results then also has the decoded state's
-    evaluation ("psnr", "ssim", "eval_k", "eval_d", "fps", "per_view"),
-    "psnr_float", "codec_delta_db" (float minus decoded), "size_bits" and
-    "size_mb", which results.json in model_dir holds."""
+    test views (the first two training views when there are none), their
+    renders written to model_dir/test_renders and model_dir/float_renders.
+    results then also has the decoded state's evaluation ("psnr", "ssim",
+    the LPIPS key and "lpips_variant", "eval_k", "eval_d", "fps",
+    "per_view"), "psnr_float", "codec_delta_db" (float minus decoded),
+    "size_bits" and "size_mb", which results.json in model_dir holds."""
     dev = resolve(device)
     if family is None:
         from gauspcc_tpu_torch.models import registry
@@ -314,6 +325,9 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
                 step_fn = mk_step(rcfg)
                 caps.append((it, rcfg.max_tiles_per_gaussian,
                              rcfg.max_gaussians_per_tile))
+        if gui is not None:
+            _poll_gui(gui, hac.merge_state(params, rest), cfg, model_dir or "",
+                      log=log)
         if not order:
             order = rng.permutation(len(cam_arrays)).tolist()
         cam = cam_arrays[order.pop()]
@@ -412,14 +426,16 @@ def train_scene(scene, cfg, opt: hac_train.OptConfig, *,
     return state, results
 
 
-RESULT_KEYS = ("psnr", "ssim", "eval_k", "eval_d", "fps", "per_view",
-               "psnr_float", "codec_delta_db", "size_bits", "size_mb")
+RESULT_KEYS = ("psnr", "ssim", "lpips", "lpips_surrogate", "lpips_variant",
+               "eval_k", "eval_d", "fps", "per_view", "psnr_float",
+               "codec_delta_db", "size_bits", "size_mb")
 
 
 def _code_and_evaluate(state, cfg, family, scene, model_dir, pcc_params,
                        pcc_cfg, white_background, log, hb) -> dict:
     """train_scene's tail: estimate (HAC only), encode, decode, evaluate the
-    decoded and the float state, write results.json."""
+    decoded and the float state (renders into model_dir/test_renders and
+    model_dir/float_renders), write results.json."""
     pcc_cfg = pcc_cfg if pcc_cfg is not None else pcc_model.NetConfig()
     if family.name == "hac":
         _, est_log = hac_codec.estimate_final_bits(state, cfg)
@@ -436,10 +452,12 @@ def _code_and_evaluate(state, cfg, family, scene, model_dir, pcc_params,
     cams = scene.test_cameras or scene.train_cameras[:2]
     with hb.guard("eval_decoded"):
         results = evaluate(dec_state, cfg, cams,
-                           white_background=white_background, decoded=True)
+                           white_background=white_background, decoded=True,
+                           out_dir=os.path.join(model_dir, "test_renders"))
     with hb.guard("eval_float"):
         float_res = evaluate(state, cfg, cams,
-                             white_background=white_background)
+                             white_background=white_background,
+                             out_dir=os.path.join(model_dir, "float_renders"))
     results["psnr_float"] = float_res["psnr"]
     if results["psnr"] is not None and float_res["psnr"] is not None:
         results["codec_delta_db"] = float_res["psnr"] - results["psnr"]
@@ -481,17 +499,21 @@ class _ViewTimer:
 @torch.no_grad()
 def render_sets(state, cfg: hac.HACConfig, cameras,
                 white_background: bool = False, decoded: bool = False,
-                max_k: int = 256, max_d: int = 32):
+                max_k: int = 256, max_d: int = 32, out_dir: str | None = None):
     """Render all views. Returns (renders [3, H, W] each, ms per view).
 
     Each shape bucket gets one untimed warm-up render first, so the times
-    are steady-state renders."""
+    are steady-state renders. With `out_dir` each render is copied to the
+    host after its timer stops and written there as {i:05d}.png
+    (`_save_png`)."""
     cfg = _base(cfg)
     dev = _device(state)
     bg = torch.ones(3, device=dev) if white_background else torch.zeros(3, device=dev)
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
     renders, ms = [], []
     warmed: set = set()
-    for cam in cameras:
+    for i, cam in enumerate(cameras):
         rcfg = _raster_cfg(cam, max_k, max_d)
         ca = hac_render.CameraArrays.from_camera(cam, dev)
         if rcfg not in warmed:
@@ -502,22 +524,48 @@ def render_sets(state, cfg: hac.HACConfig, cameras,
                                           decoded=decoded)
         renders.append(img)
         ms.append(t.ms)
+        if out_dir is not None:
+            _save_png(img.cpu().numpy(), os.path.join(out_dir, f"{i:05d}.png"))
     return renders, ms
+
+
+@functools.lru_cache(maxsize=None)
+def _lpips_module(path: str, exists: bool, device: str):
+    from gauspcc_tpu_torch.utils import lpips
+
+    return lpips.load_default_lpips(path, device=device)
+
+
+def _lpips_for(device: torch.device):
+    """The LPIPS module of the weights `utils.lpips.weights_path()` names
+    (the seeded surrogate without them), built once a process and device.
+    Unlike the JAX package's _try_lpips (:553), which returns None on any
+    error, a failure to build it raises."""
+    from gauspcc_tpu_torch.utils import lpips
+
+    path = lpips.weights_path()
+    return _lpips_module(path, os.path.exists(path), str(device))
 
 
 @torch.no_grad()
 def evaluate(state, cfg, cameras, white_background: bool = False,
              decoded: bool = False, auto_k: bool = True,
-             max_k: int | None = None, max_d: int | None = None) -> dict:
-    """PSNR/SSIM of the eval renders (STE-quantised for HAC's float state,
-    the decoded state's attributes as they are with `decoded`) against the
-    cameras' ground-truth images, for every family.
+             max_k: int | None = None, max_d: int | None = None,
+             out_dir: str | None = None) -> dict:
+    """PSNR, SSIM and LPIPS of the eval renders (STE-quantised for HAC's
+    float state, the decoded state's attributes as they are with `decoded`)
+    against the cameras' ground-truth images, for every family.
 
     The caps follow the JAX package's rule: with `auto_k` (the default) K
     is the smallest visually lossless one on the first camera
     (`select_eval_k`) and D covers every footprint (`select_eval_d`,
     capped at 128); without it K 256 and D 32. `max_k` / `max_d` fix a cap
-    instead (the r5 soak evaluated at K 1024)."""
+    instead (the r5 soak evaluated at K 1024). With `out_dir` the renders
+    are written there (`render_sets`).
+
+    LPIPS is reported as "lpips" only for the pretrained VGG16 weights; the
+    seeded surrogate's value goes under "lpips_surrogate", so that no one
+    compares it with published LPIPS. "lpips_variant" names the weights."""
     cfg = _base(cfg)
     if max_k is None:
         max_k = (select_eval_k(state, cfg, cameras[0], decoded=decoded)
@@ -526,7 +574,10 @@ def evaluate(state, cfg, cameras, white_background: bool = False,
         max_d = (select_eval_d(state, cfg, cameras, decoded=decoded)
                  if auto_k and cameras else 32)
     renders, ms = render_sets(state, cfg, cameras, white_background, decoded,
-                              max_k=max_k, max_d=max_d)
+                              max_k=max_k, max_d=max_d, out_dir=out_dir)
+    lpips_fn = _lpips_for(_device(state))
+    variant = lpips_fn.variant
+    lpips_key = "lpips" if variant == "vgg16_pretrained" else "lpips_surrogate"
     per_view = {}
     for i, (cam, img) in enumerate(zip(cameras, renders)):
         entry = {"ms": ms[i]}
@@ -534,14 +585,74 @@ def evaluate(state, cfg, cameras, white_background: bool = False,
             gt = torch.from_numpy(cam.image).to(img.device)
             entry["psnr"] = float(img_lib.psnr(img, gt))
             entry["ssim"] = float(img_lib.ssim(img, gt))
+            entry[lpips_key] = float(lpips_fn(img, gt))
         per_view[f"{i:05d}"] = entry
     scored = [v for v in per_view.values() if "psnr" in v]
+
+    def mean(key):
+        return float(np.mean([v[key] for v in scored])) if scored else None
+
     return {
-        "psnr": float(np.mean([v["psnr"] for v in scored])) if scored else None,
-        "ssim": float(np.mean([v["ssim"] for v in scored])) if scored else None,
+        "psnr": mean("psnr"),
+        "ssim": mean("ssim"),
         "eval_k": max_k,
         "eval_d": max_d,
+        lpips_key: mean(lpips_key),
+        "lpips_variant": variant,
         "fps": len(ms) / max(sum(ms) / 1e3, 1e-9),
         "per_view": per_view,
         "renders": renders,
     }
+
+
+@torch.no_grad()
+def _poll_gui(gui, state, cfg, verify: str, log=print) -> None:
+    """Serve the SIBR remote viewer between training steps: render the
+    camera it asks for (K 256) on the state's device and send the frame,
+    and keep serving while the viewer has training paused. An error inside
+    the exchange is logged and disconnects the viewer; training goes on (the
+    viewer's protocol, as the JAX package's :505-541)."""
+    from gauspcc_tpu_torch.utils import network_gui
+
+    cfg = _base(cfg)
+    dev = _device(state)
+    while gui.try_connect():
+        try:
+            cam_dict, do_training, keep_alive, _scale = gui.receive()
+            img_bytes = None
+            if cam_dict is not None:
+                wvt = cam_dict["world_view_transform"]
+                center = np.linalg.inv(wvt)[3, :3].astype(np.float32)
+                cam = hac_render.CameraArrays(
+                    viewmatrix=torch.from_numpy(wvt).to(dev),
+                    camera_center=torch.from_numpy(center).to(dev))
+                rcfg = raster.RasterConfig(
+                    height=cam_dict["height"], width=cam_dict["width"],
+                    tanfovx=float(np.tan(cam_dict["fovx"] * 0.5)),
+                    tanfovy=float(np.tan(cam_dict["fovy"] * 0.5)),
+                    max_gaussians_per_tile=256)
+                out = hac_render.render_view(state, cfg, cam, rcfg,
+                                             torch.zeros(3, device=dev))
+                img_bytes = network_gui.image_to_bytes(
+                    out["render"].cpu().numpy())
+            gui.send(img_bytes, verify)
+            if do_training or not keep_alive:
+                break
+        except Exception:
+            log("viewer disconnected after an error:\n"
+                + traceback.format_exc())
+            gui.disconnect()
+            break
+
+
+def _save_png(img_chw: np.ndarray, path: str) -> None:
+    """[3, H, W] float in [0, 1] as an 8-bit PNG (x 255 clipped and
+    truncated, as the JAX package writes it); without PIL the float array
+    as .npy beside where the PNG would be."""
+    try:
+        from PIL import Image
+    except ImportError:
+        np.save(path.replace(".png", ".npy"), img_chw)
+        return
+    arr = np.clip(img_chw.transpose(1, 2, 0) * 255.0, 0, 255).astype(np.uint8)
+    Image.fromarray(arr).save(path)

@@ -1,5 +1,5 @@
 """File-level entropy coding of quantized tensors (counterpart of
-gauspcc_tpu/ops/entropy_coding.py:30-168, :213-256).
+gauspcc_tpu/ops/entropy_coding.py).
 
 The models are computed in torch on the tensors' device; the bits are
 written by the port's native coder on the host (`ops/coder.py`). A tensor
@@ -13,7 +13,12 @@ the coder evaluates itself. Encoder and decoder compute the centre and the
 model with the same operations, so on one device and one build they agree
 bit for bit. The mixture coder (HAC++'s features) centres its residuals on
 round(sum_k p_k mean_k / q) and hands the coder K components per symbol.
-The factorized coders wait for ROADMAP.md Queue 1 item 7h.
+The factorized coder writes one int16 CDF row per channel over the
+symbols' range, for every row of that channel. The rows are evaluated by
+the factorized model in float32 on the host whatever device holds the
+parameters, so a stream's tables, and its bytes, do not depend on the
+device that wrote it. Against the JAX package's tables (XLA's tanh and
+softplus) an entry can differ by one count of 2^16.
 """
 
 from __future__ import annotations
@@ -22,10 +27,9 @@ import numpy as np
 import torch
 
 from gauspcc_tpu_torch.core import cdf as cdf_lib
+from gauspcc_tpu_torch.core import entropy as entropy_lib
+from gauspcc_tpu_torch.core.quant import quantize_to_symbols
 from gauspcc_tpu_torch.ops import coder
-
-_LATER = ("the factorized coders are not ported yet: no family of the port "
-          "calls them (ROADMAP.md Queue 1 item 7h)")
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -210,9 +214,63 @@ def decode_gaussian_mixed(means, scales, probs, q, file_name: str) -> torch.Tens
     return _dequantize(torch.from_numpy(sym).to(q.device), rmin, center, q)
 
 
-def encode_factorized(*args, **kwargs):
-    raise NotImplementedError(_LATER)
+@torch.no_grad()
+def factorized_table(params: dict, min_v: int, max_v: int, q) -> np.ndarray:
+    """The uint16 CDF rows [C, Lp] of the factorized model over the symbols
+    min_v..max_v (Lp = max_v - min_v + 2 edges at (s - 0.5) q), each
+    channel's CDF rescaled to run from 0 to 1 before the int16
+    normalisation; computed on the host in float32."""
+    params = {k: [v.detach().to("cpu", torch.float32) for v in leaves]
+              for k, leaves in params.items()}
+    c = params["matrices"][0].shape[0]
+    lp = max_v - min_v + 2
+    samples = (torch.arange(lp, dtype=torch.float32) + (min_v - 0.5)) * float(q)
+    logits = entropy_lib.factorized_logits_cumulative(
+        params, samples[None, None, :].expand(c, 1, lp))
+    cdf = torch.sigmoid(logits)[:, 0, :]  # [C, Lp], monotone in the symbol
+    cdf = torch.clamp((cdf - cdf[:, :1])
+                      / torch.clamp_min(cdf[:, -1:] - cdf[:, :1], 1e-9), 0.0, 1.0)
+    return cdf_lib.normalize_cdf_int16(cdf).numpy().astype(np.uint16)
 
 
-def decode_factorized(*args, **kwargs):
-    raise NotImplementedError(_LATER)
+def _rows(table: np.ndarray, n: int) -> np.ndarray:
+    """The channels' rows [C, Lp] repeated for n rows of values: [n C, Lp]."""
+    c, lp = table.shape
+    return np.ascontiguousarray(
+        np.broadcast_to(table[None], (n, c, lp)).reshape(n * c, lp))
+
+
+def encode_factorized(params: dict, x: torch.Tensor, q, file_name: str) -> int:
+    """Arithmetic-encode the values x [N, C] at step q (a number) under the
+    factorized model `params` (one CDF row a channel). Returns the bits
+    written."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be [N, C], got {tuple(x.shape)}")
+    n, c = x.shape
+    sym = quantize_to_symbols(x, q).cpu().numpy()
+    if sym.size == 0:
+        payload, min_v, max_v = np.uint32(0).tobytes(), 0, 0
+    else:
+        min_v, max_v = int(sym.min()), int(sym.max())
+        table = factorized_table(params, min_v, max_v, q)
+        payload = coder.encode_int16_cdf(
+            _rows(table, n), (sym.reshape(-1) - min_v).astype(np.int16))
+    _write(file_name, [min_v, max_v], payload)
+    return (len(payload) + 8) * 8
+
+
+def decode_factorized(params: dict, n: int, c: int, q,
+                      file_name: str) -> torch.Tensor:
+    """Inverse of encode_factorized: float32 [N, C] on the parameters'
+    device."""
+    dev = params["matrices"][0].device
+    with open(file_name, "rb") as f:
+        min_v = int(np.frombuffer(f.read(4), dtype=np.float32)[0])
+        max_v = int(np.frombuffer(f.read(4), dtype=np.float32)[0])
+        payload = f.read()
+    if n * c == 0:
+        return torch.zeros((n, c), dtype=torch.float32, device=dev)
+    table = factorized_table(params, min_v, max_v, q)
+    sym = coder.decode_int16_cdf(_rows(table, n), payload)
+    vals = torch.from_numpy(sym.astype(np.float32)).reshape(n, c).to(dev)
+    return (vals + min_v) * q

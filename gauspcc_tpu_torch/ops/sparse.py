@@ -10,13 +10,13 @@ The general submanifold sparse conv and its geometry (torch, on the
 codec's device; `lex_sort` :58, `fcg_expand` :143, `NeighborMap` :180
 (`kernel_offsets` :173 is `hostmap.kernel_offsets`), `nmap_from_host`
 :192, `WindowMap` / `PackedLo` / `pack_lo_np` :197-253, `expand_lo` :257,
-`nmap_from_packed` :266, `build_neighbor_map` :335, `sparse_conv_apply`
-:441; `sorted_children` is the codec's `_device_children`,
-gauspcc_tpu/codecs/gauspcgc/codec.py:526). Every function takes
-fixed-capacity tensors and a validity mask, so what it launches depends
-only on the capacities, and nothing reads a value back to the host: the
-device-built geometry (codec version 7) runs a whole pyramid without a
-synchronisation.
+`nmap_from_packed` :266, `sparse_conv_window` :283, `build_neighbor_map`
+:335, `sparse_conv_apply` :441; `sorted_children` is the codec's
+`_device_children`, gauspcc_tpu/codecs/gauspcgc/codec.py:526). Every
+function takes fixed-capacity tensors and a validity mask, so what it
+launches depends only on the capacities, and nothing reads a value back to
+the host: the device-built geometry (codec version 7) runs a whole pyramid
+without a synchronisation.
 
 `sparse_conv_apply` gathers K^3 taps in groups of 8 and takes one
 [Nq, g*Cin] x [g*Cin, Cout] `torch.matmul` a group, in float32 on the
@@ -403,3 +403,40 @@ def sparse_conv_apply(feats: torch.Tensor, nmap: NeighborMap,
         raise ValueError(f"a map of {nmap.idx.shape[0]} taps does not serve "
                          f"a weight of {weight.shape[0]} taps")
     return _SparseConv.apply(feats, weight, bias, nmap)
+
+
+def sparse_conv_window(feats: torch.Tensor, wmap: WindowMap,
+                       weight: torch.Tensor, bias: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Submanifold sparse conv of feats [Ns, Cin] over a packed window map
+    (gauspcc_tpu/ops/sparse.py:283): weight [K3, Cin, Cout], bias [Cout] ->
+    [Nq, Cout] in feats.dtype, equal to `sparse_conv_apply` over the dense
+    map the codes expand to (`nmap_from_packed`).
+
+    Per (dz, dy) kernel row it gathers the k-row window of consecutive
+    sources at lo + [0, k) (clipped to the sources), aligns the window's
+    slots to the x-offset bins by the 3-bit codes (absent bins read zeros)
+    and takes one [Nq, k Cin] x [k Cin, Cout] product on the features'
+    values in float32. Nothing in either package's codec calls it."""
+    k3, cin, cout = weight.shape
+    k = round(k3 ** (1 / 3))
+    if k**3 != k3:
+        raise ValueError(f"a weight of {k3} taps is not a cube")
+    if wmap.lo.shape[0] != k * k:
+        raise ValueError(f"a window map of {wmap.lo.shape[0]} kernel rows "
+                         f"does not serve a kernel of size {k}")
+    nq, ns = wmap.lo.shape[1], feats.shape[0]
+    w = weight.to(feats.dtype).to(torch.float32).reshape(k * k, k * cin, cout)
+    x = feats.to(torch.float32)
+    shifts = 3 * torch.arange(k, device=wmap.codes.device, dtype=torch.int32)
+    out = torch.zeros((nq, cout), dtype=torch.float32, device=feats.device)
+    for r in range(k * k):
+        slots = (wmap.codes[r].to(torch.int32)[:, None] >> shifts[None, :]) & 7
+        hit = slots < k  # [Nq, k (dx bin)]
+        rows = torch.clamp(wmap.lo[r][:, None] + torch.where(hit, slots, 0),
+                           0, ns - 1).to(torch.int64)
+        aligned = torch.where(hit[..., None], x[rows], 0.0)  # [Nq, k, Cin]
+        out = out + aligned.reshape(nq, k * cin) @ w[r]
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(feats.dtype)

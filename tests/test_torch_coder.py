@@ -178,9 +178,22 @@ def test_encode_binary_file_equals_jax_and_decodes(tmp_path, p):
         ec.decode_binary(x.size, str(tmp_path / "j.b")).numpy(), x)
 
 
-def test_unported_coders_raise():
-    """The factorized coders, which no ported family calls, are still to
-    come (the mixture coders are ported: tests/test_torch_hac_plus.py)."""
-    for fn in (ec.encode_factorized, ec.decode_factorized):
-        with pytest.raises(NotImplementedError, match="item 7h"):
-            fn()
+def test_factorized_coder_round_trips(tmp_path):
+    """The factorized coder (parity with JAX's tables and bytes:
+    tests/test_torch_leftovers.py) on parameters of the port's own
+    initialisation: the 8-byte header of the symbols' range, then the
+    payload, and an exact decode."""
+    from gauspcc_tpu_torch.core import entropy
+
+    params = entropy.init_factorized_params(
+        3, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(8).laplace(
+        0, 5, (4000, 3)).astype(np.float32))
+    path = str(tmp_path / "f.b")
+    bits = ec.encode_factorized(params, x, 1.0, path)
+    raw = open(path, "rb").read()
+    assert bits == 8 * len(raw)
+    sym = torch.round(x)
+    assert np.frombuffer(raw[:8], np.float32).tolist() == [sym.min(), sym.max()]
+    np.testing.assert_array_equal(
+        ec.decode_factorized(params, 4000, 3, 1.0, path).numpy(), sym.numpy())
