@@ -1,0 +1,8 @@
+"""Share of the traced window in which no operation ran on the card, view
+cell (%)."""
+
+from portbench.layer_metrics import _common
+
+
+def read(run):
+    return _common.idle_pct(run)

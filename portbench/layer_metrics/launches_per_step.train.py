@@ -1,0 +1,7 @@
+"""CUDA kernels launched in the traced window per HAC training step."""
+
+from portbench.layer_metrics import _common
+
+
+def read(run):
+    return _common.launches_per_unit(run)
