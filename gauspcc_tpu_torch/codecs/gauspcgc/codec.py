@@ -52,6 +52,7 @@ from gauspcc_tpu_torch.codecs.gauspcgc import model as net
 from gauspcc_tpu_torch.core import bitstream, cdf as cdf_lib
 from gauspcc_tpu_torch.device import resolve
 from gauspcc_tpu_torch.ops import hostmap, rans, sibconv, sparse
+from gauspcc_tpu_torch.utils import profiling
 
 MAGIC = 0x47504354  # 'GPCT'
 # the port's engines (the JAX package writes 2, 3 and 4): a version pins
@@ -94,30 +95,31 @@ def _exact_gemms():
 
 
 class _Timer:
-    """Per-level phase times for `profile`: CUDA events on the card (no
-    synchronisation until `finish`), the host clock on the CPU."""
+    """Per-level phase times, each phase from the previous mark to its own:
+    the recorder's marks (CUDA events on the card, read at `finish`, which
+    waits once; the host clock on the CPU). While the recorder is on, each
+    phase is also a span, "codec.<phase>"."""
 
     def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: list[tuple[str, object]] = []
-        self.mark("start")
+        self.device = device
+        self.marks = [("start", profiling.mark(device))]
 
     def mark(self, name: str) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
+        m = profiling.mark(self.device)
+        profiling.add_span("codec." + name, self.marks[-1][1], m)
+        self.marks.append((name, m))
 
     def finish(self) -> dict[str, float]:
         """{phase: ms} between consecutive marks."""
-        if self.cuda:
-            self.marks[-1][1].synchronize()
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-        return out
+        return {name: profiling.elapsed_ms(a, b)
+                for (_, a), (name, b) in zip(self.marks, self.marks[1:])}
+
+
+def _timer(device: torch.device, profile) -> _Timer | None:
+    """A level's timer, for its `profile` entry or for the recorder."""
+    if profile is not None or profiling.recording():
+        return _Timer(device)
+    return None
 
 
 class _SibLevelGeometry:
@@ -224,7 +226,7 @@ def _encode_levels_sib(levels, params, config: net.NetConfig, device,
     pending = []
     g = None
     for depth in range(len(levels) - 1):
-        timer = _Timer(device) if profile is not None else None
+        timer = _timer(device, profile)
         p_coords = torch.as_tensor(levels[depth][0], device=device)
         p_occ = torch.as_tensor(levels[depth][1].astype(np.int64), device=device)
         c_coords, c_occ = levels[depth + 1]
@@ -246,6 +248,7 @@ def _encode_levels_sib(levels, params, config: net.NetConfig, device,
         pending.append(_rans_encode_level(tables, syms, g.n_child))
         if timer:
             timer.mark("rans")
+        if profile is not None:
             profile.append({"n_child": g.n_child, "ccap": g.ccap,
                             "timer": timer})
     _finish(profile)
@@ -262,7 +265,7 @@ def _decode_levels_sib(base_coords, base_occ, payload: bytes, params,
     p_occ = torch.as_tensor(base_occ.astype(np.int64), device=device)
     g = None
     for stream in streams:
-        timer = _Timer(device) if profile is not None else None
+        timer = _timer(device, profile)
         n_child = int(_popcount(p_occ).sum())
         g = _SibLevelGeometry(p_coords, p_occ, n_child, parent=g)
         words = _level_words(stream, g.ccap, device)
@@ -279,6 +282,7 @@ def _decode_levels_sib(base_coords, base_occ, payload: bytes, params,
                                                prev, stage)
         if timer:
             timer.mark("cdf_and_rans")
+        if profile is not None:
             profile.append({"n_child": n_child, "ccap": g.ccap, "timer": timer})
         p_coords = g.child_coords[:n_child]
         p_occ = prev[:n_child].to(torch.int64)
@@ -472,7 +476,7 @@ def _encode_levels(levels, params, config: net.NetConfig, device,
     geo_prof = [] if profile is not None else None
     geos = _level_geometries(levels, config.kernel_size, device, geo_prof)
     for depth in range(len(levels) - 1):
-        timer = _Timer(device) if profile is not None else None
+        timer = _timer(device, profile)
         g = next(geos)
         c_coords, c_occ = levels[depth + 1]
         # the coded symbols are indexed by the host's lex-sorted children
@@ -502,7 +506,7 @@ def _decode_levels(base_coords, base_occ, payload: bytes, params,
     p_occ = base_occ.astype(np.int32)
     g = None
     for stream in streams:
-        timer = _Timer(device) if profile is not None else None
+        timer = _timer(device, profile)
         n_child = int(np.unpackbits(p_occ.astype(np.uint8)[:, None], axis=1).sum())
         reuse = g.c_map if g is not None and g.ccap == _bucket(p_coords.shape[0]) else None
         prof = {} if profile is not None else None
@@ -571,7 +575,7 @@ def _encode_levels_device(levels, params, config: net.NetConfig, device,
     pending = []
     send = None
     while True:
-        timer = _Timer(device) if profile is not None else None
+        timer = _timer(device, profile)
         depth, geom = gen.send(send)
         if depth < 0:
             break
@@ -604,7 +608,7 @@ def _decode_levels_device(base_coords, base_occ, payload: bytes, counts,
                          base_occ.astype(np.int32), config, device)
     send = None
     while True:
-        timer = _Timer(device) if profile is not None else None
+        timer = _timer(device, profile)
         depth, geom = gen.send(send)
         if depth < 0:
             break
@@ -697,6 +701,7 @@ def _decode_pyramid(version, base_coords, base_occ, counts, payload, params,
     return dec(base_coords, base_occ, payload, params, config, dev, profile)
 
 
+@profiling.span("codec.encode")
 def compress_point_cloud(xyz_quantized, params, output_path: str,
                          posQ: float = 1.0,
                          config: net.NetConfig = net.NetConfig(),
@@ -722,15 +727,16 @@ def compress_point_cloud(xyz_quantized, params, output_path: str,
     n_points = xyz.shape[0]
 
     t0 = time.time()
-    shift = xyz.min(axis=0)
-    xyz0 = sparse.dedupe_lex(xyz - shift)
-    _check_span(xyz0, "the cloud")
-    levels = sparse.build_occupancy_pyramid(xyz0, min_points=MIN_BASE_POINTS,
-                                            sorted_unique=True)
+    with profiling.span("codec.pyramid"):
+        shift = xyz.min(axis=0)
+        xyz0 = sparse.dedupe_lex(xyz - shift)
+        _check_span(xyz0, "the cloud")
+        levels = sparse.build_occupancy_pyramid(
+            xyz0, min_points=MIN_BASE_POINTS, sorted_unique=True)
     with torch.no_grad(), _exact_gemms():
         streams, counts = _encode_pyramid(levels, params, config, geom, dev,
                                           profile)
-    with open(output_path, "wb") as f:
+    with profiling.span("codec.write"), open(output_path, "wb") as f:
         f.write(np.uint32(MAGIC).tobytes())
         f.write(np.uint8(ENGINES[geom]).tobytes())
         f.write(np.float16(posQ).tobytes())
@@ -743,6 +749,7 @@ def compress_point_cloud(xyz_quantized, params, output_path: str,
             "num_points": n_points, "output_path": output_path}
 
 
+@profiling.span("codec.decode")
 def decompress_point_cloud(bin_file_path: str, params,
                            config: net.NetConfig = net.NetConfig(),
                            profile: list | None = None,
@@ -755,7 +762,7 @@ def decompress_point_cloud(bin_file_path: str, params,
     from another engine, and decoding it would give garbage."""
     dev = resolve(device)
     params = params.to(dev)
-    with open(bin_file_path, "rb") as f:
+    with profiling.span("codec.parse"), open(bin_file_path, "rb") as f:
         version = _read_version(f, bin_file_path, MAGIC, "GPCT")
         posQ = float(np.frombuffer(f.read(2), np.float16)[0])
         shift = np.frombuffer(f.read(12), np.int32).astype(np.int64)
@@ -804,6 +811,7 @@ def _merge_clouds(clouds, posQ: float):
             np.asarray(counts, np.int64), lbits)
 
 
+@profiling.span("codec.encode")
 def compress_point_cloud_batch(clouds, params, output_path: str,
                                posQ: float = 1.0,
                                config: net.NetConfig = net.NetConfig(),
@@ -817,13 +825,16 @@ def compress_point_cloud_batch(clouds, params, output_path: str,
     dev = resolve(device)
     params = params.to(dev)
     t0 = time.time()
-    merged, shifts, counts, lbits = _merge_clouds(clouds, posQ)
-    levels = sparse.build_occupancy_pyramid(merged, min_points=MIN_BASE_POINTS)
+    with profiling.span("codec.merge"):
+        merged, shifts, counts, lbits = _merge_clouds(clouds, posQ)
+    with profiling.span("codec.pyramid"):
+        levels = sparse.build_occupancy_pyramid(merged,
+                                                min_points=MIN_BASE_POINTS)
     with torch.no_grad(), _exact_gemms():
         streams, lvl_counts = _encode_pyramid(levels, params, config, geom, dev,
                                               profile)
     m = len(clouds)
-    with open(output_path, "wb") as f:
+    with profiling.span("codec.write"), open(output_path, "wb") as f:
         f.write(np.uint32(BATCH_MAGIC).tobytes())
         f.write(np.uint8(ENGINES[geom]).tobytes())
         f.write(np.float16(posQ).tobytes())
@@ -838,6 +849,7 @@ def compress_point_cloud_batch(clouds, params, output_path: str,
             "num_points": n_points, "num_clouds": m, "output_path": output_path}
 
 
+@profiling.span("codec.decode")
 def decompress_point_cloud_batch(bin_file_path: str, params,
                                  config: net.NetConfig = net.NetConfig(),
                                  profile: list | None = None,
@@ -847,7 +859,7 @@ def decompress_point_cloud_batch(bin_file_path: str, params,
     disagrees with the header's raises."""
     dev = resolve(device)
     params = params.to(dev)
-    with open(bin_file_path, "rb") as f:
+    with profiling.span("codec.parse"), open(bin_file_path, "rb") as f:
         version = _read_version(f, bin_file_path, BATCH_MAGIC, "GPCB")
         posQ = float(np.frombuffer(f.read(2), np.float16)[0])
         m, lbits = (int(v) for v in np.frombuffer(f.read(8), np.int32))
@@ -859,15 +871,17 @@ def decompress_point_cloud_batch(bin_file_path: str, params,
     with torch.no_grad(), _exact_gemms():
         cc, n_final = _decode_pyramid(version, *pyramid, params, config, dev,
                                       profile)
-    cloud_id = cc[:, 2] >> lbits
-    local = cc.copy()
-    local[:, 2] -= cloud_id << lbits
-    clouds = []
-    for i in range(m):
-        sel = local[cloud_id == i] + shifts[i].astype(np.int64)
-        if sel.shape[0] != counts[i]:
-            raise ValueError(f"{bin_file_path}: cloud {i} decoded "
-                             f"{sel.shape[0]} points, its header says {counts[i]}")
-        clouds.append(sel.astype(np.float32) * posQ)
+    with profiling.span("codec.split"):
+        cloud_id = cc[:, 2] >> lbits
+        local = cc.copy()
+        local[:, 2] -= cloud_id << lbits
+        clouds = []
+        for i in range(m):
+            sel = local[cloud_id == i] + shifts[i].astype(np.int64)
+            if sel.shape[0] != counts[i]:
+                raise ValueError(f"{bin_file_path}: cloud {i} decoded "
+                                 f"{sel.shape[0]} points, its header says "
+                                 f"{counts[i]}")
+            clouds.append(sel.astype(np.float32) * posQ)
     return {"dec_time": time.time() - t0, "num_points": n_final,
             "point_clouds": clouds}

@@ -38,7 +38,7 @@ from gauspcc_tpu_torch.codecs.gauspcgc.codec import (
     MIN_BASE_POINTS, _gmap, _level_geometries)
 from gauspcc_tpu_torch.device import resolve
 from gauspcc_tpu_torch.ops import hostmap, sibconv, sparse
-from gauspcc_tpu_torch.utils import checkpoint
+from gauspcc_tpu_torch.utils import checkpoint, profiling
 from gauspcc_tpu_torch.utils.heartbeat import Heartbeat
 from gauspcc_tpu_torch.utils.optim import GroupAdam
 
@@ -208,6 +208,7 @@ def cloud_bits(net, net_cfg: model.NetConfig, xyz_int: np.ndarray,
     return float(total), n_points
 
 
+@profiling.span("codec.step")
 def train_step(net, optimizer: GroupAdam, opt_state: dict,
                net_cfg: model.NetConfig, xyz_int: np.ndarray | None,
                prepared=None) -> tuple[dict, float]:
@@ -223,8 +224,10 @@ def train_step(net, optimizer: GroupAdam, opt_state: dict,
         p.grad = None
     total = None
     for b in batches:
-        bits, _ = _batch_bits(net, net_cfg, b)
-        bits.backward()
+        with profiling.span("codec.level.fwd"):
+            bits, _ = _batch_bits(net, net_cfg, b)
+        with profiling.span("codec.level.bwd"):
+            bits.backward()
         bits = bits.detach()
         total = bits if total is None else total + bits
     inv_n = float(np.float32(1.0 / n_points))

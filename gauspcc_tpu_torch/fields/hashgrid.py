@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from gauspcc_tpu_torch.core.quant import ste_binary
+from gauspcc_tpu_torch.utils import profiling
 
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
@@ -146,15 +147,20 @@ class MixedTables(nn.Module):
 
     def forward(self, x: torch.Tensor, binarize: bool = True) -> torch.Tensor:
         """HAC context features: the 3-D grid on xyz and the 2-D grids on
-        the three axis planes, concatenated (mixed_encode)."""
+        the three axis planes, concatenated (mixed_encode). While the
+        recorder is on, its backward is the span "hac.grid.bwd": from the
+        output's gradient to the last table's."""
         tb = {n: ste_binary(getattr(self, n)) if binarize else getattr(self, n)
               for n in TABLE_NAMES}
-        return torch.cat([
+        out = torch.cat([
             encode(self.spec.xyz, tb["xyz"], x),
             encode(self.spec.plane, tb["xy"], x[:, 0:2]),
             encode(self.spec.plane, tb["xz"], x[:, 0::2]),
             encode(self.spec.plane, tb["yz"], x[:, 1:3]),
         ], -1)
+        profiling.backward_span("hac.grid.bwd", out,
+                                [getattr(self, n) for n in TABLE_NAMES])
+        return out
 
     def flat(self) -> torch.Tensor:
         """All embeddings concatenated in the order xyz, xy, xz, yz."""

@@ -40,41 +40,31 @@ from gauspcc_tpu_torch.fields import hashgrid
 from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.ops import coder, sparse
 from gauspcc_tpu_torch.ops import entropy_coding as ec
+from gauspcc_tpu_torch.utils import profiling
 
 BIT2MB = 8 * 1024 * 1024
 BATCH = 3000  # anchors a batch (the reference's MAX_batch_size)
 
 
 class _DeviceClock:
-    """Summed milliseconds of timed device work: CUDA events on the card
-    (read once, at `ms`), the host clock on the CPU."""
+    """Summed milliseconds of timed device work, between the recorder's
+    marks: CUDA events on the card (read once, at `ms`), the host clock on
+    the CPU."""
 
     def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
+        self.device = device
         self.spans: list = []
 
     def __enter__(self):
-        if self.cuda:
-            self.start = torch.cuda.Event(enable_timing=True)
-            self.start.record()
-        else:
-            self.t0 = time.perf_counter()
+        self.start = profiling.mark(self.device)
         return self
 
     def __exit__(self, *exc):
-        if self.cuda:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self.spans.append((self.start, end))
-        else:
-            self.spans.append((time.perf_counter() - self.t0) * 1e3)
+        self.spans.append((self.start, profiling.mark(self.device)))
 
     @property
     def ms(self) -> float:
-        if not self.cuda:
-            return float(sum(self.spans))
-        torch.cuda.synchronize()
-        return float(sum(a.elapsed_time(b) for a, b in self.spans))
+        return float(sum(profiling.elapsed_ms(a, b) for a, b in self.spans))
 
 
 def _device(state) -> torch.device:

@@ -13,6 +13,7 @@ from gauspcc_tpu_torch.device import resolve
 from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.render import raster
 from gauspcc_tpu_torch.utils import image as img_lib
+from gauspcc_tpu_torch.utils import profiling
 
 
 class CameraArrays(NamedTuple):
@@ -38,6 +39,7 @@ class CameraArrays(NamedTuple):
             image=image)
 
 
+@profiling.span("hac.prefilter")
 def prefilter_voxel(state, cfg: hac.HACConfig, cam: CameraArrays,
                     rcfg: raster.RasterConfig, decoded: bool = False):
     """Anchor visibility mask [cap]."""
@@ -55,9 +57,10 @@ def render_view(state, cfg: hac.HACConfig, cam: CameraArrays,
                 generator: torch.Generator | None = None,
                 decoded: bool = False, means2d_extra=None) -> dict:
     visible = prefilter_voxel(state, cfg, cam, rcfg, decoded)
-    ng, rate = hac.generate_neural_gaussians(
-        state, cfg, cam.camera_center, visible, training=training,
-        phase=phase, noise=noise, generator=generator, decoded=decoded)
+    with profiling.span("hac.neural"):
+        ng, rate = hac.generate_neural_gaussians(
+            state, cfg, cam.camera_center, visible, training=training,
+            phase=phase, noise=noise, generator=generator, decoded=decoded)
     return draw(ng, rate, visible, cam, rcfg, bg_color, means2d_extra)
 
 
@@ -76,6 +79,7 @@ def draw(ng: hac.NeuralGaussians, rate, visible: torch.Tensor,
 
 
 @torch.no_grad()
+@profiling.span("hac.view")
 def render_image(state, cfg: hac.HACConfig, cam: CameraArrays,
                  rcfg: raster.RasterConfig, bg_color: torch.Tensor, *,
                  decoded: bool = False) -> torch.Tensor:
@@ -97,7 +101,8 @@ def training_loss(params, rest, cfg: hac.HACConfig, cam: CameraArrays,
     out = render_view(state, cfg, cam, rcfg, bg_color, training=True,
                       phase=phase, noise=noise, generator=generator,
                       means2d_extra=means2d_extra)
-    return objective(state, cfg, cam.image, out, lmbda, lambda_dssim)
+    with profiling.span("hac.objective"):
+        return objective(state, cfg, cam.image, out, lmbda, lambda_dssim)
 
 
 def objective(state, cfg, gt: torch.Tensor, out: dict, lmbda: float,

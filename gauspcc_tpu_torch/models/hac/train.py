@@ -24,7 +24,7 @@ from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.models.hac import render as hac_render
 from gauspcc_tpu_torch.ops import sparse
 from gauspcc_tpu_torch.render import raster
-from gauspcc_tpu_torch.utils import optim
+from gauspcc_tpu_torch.utils import optim, profiling
 
 
 @dataclass
@@ -164,14 +164,15 @@ def step_gradients(cfg, rcfg: raster.RasterConfig, opt: OptConfig, params,
         loss, aux = loss_fn(
             params, rest, cfg, cam, rcfg, bg, phase, noise, m2d, opt.lmbda,
             opt.lambda_dssim, generator=generator)
-        got = torch.autograd.grad(loss, [*leaves.values(), m2d],
-                                  allow_unused=True)
+        with profiling.span("hac.backward"):
+            got = torch.autograd.grad(loss, [*leaves.values(), m2d],
+                                      allow_unused=True)
     g_m2d = got[-1] if got[-1] is not None else torch.zeros_like(m2d)
     grads = {name: g if g is not None else torch.zeros_like(t)
              for (name, t), g in zip(leaves.items(), got[:-1])}
     if grad_mask is not None:
         grads = grad_mask(grads, phase)
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("hac.stats"):
         k = cfg.n_offsets
         vis = aux["visible_anchor"] & rest["valid"]
         opac = torch.clamp_min(aux["neural_opacity"].reshape(-1, k), 0.0)
@@ -208,6 +209,7 @@ def apply_gradients(optimizer: optim.GroupAdam, grads: dict, opt_state: dict,
 
 
 @torch.no_grad()
+@profiling.span("hac.stats")
 def add_stats_(stats: dict, increments: dict) -> dict:
     for name, inc in increments.items():
         stats[name] += inc
@@ -229,6 +231,7 @@ def make_train_step(cfg, rcfg: raster.RasterConfig, optimizer: optim.GroupAdam,
     in place. metrics (tensors: no host sync): loss, l1, psnr,
     bit_per_param, nonfinite_grads."""
 
+    @profiling.span("hac.step")
     def step_fn(params, rest, opt_state, stats, cam, phase: int = 0,
                 noise=None, generator=None):
         g = step_gradients(cfg, rcfg, opt, params, rest, cam, phase, noise,

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from gauspcc_tpu_torch import native
+from gauspcc_tpu_torch.utils import profiling
 
 U16 = 0xFFFF
 U32 = 0xFFFFFFFF
@@ -289,13 +290,15 @@ def _on_card(tensors, names, lanes: int) -> torch.device:
     return dev
 
 
+@profiling.span("rans.encode")
 def encode_stage(carry, table: torch.Tensor, syms: torch.Tensor, n_valid: int):
     """Push one stage's symbols onto the lane streams, in reverse order.
 
     table int32 [cap, Lp]; syms int32 [cap]; n_valid a host int. Call for
     the stages in reverse order (3..0); decode runs them 0..3. The kernel
     on CUDA tensors (counted in `encode_launches`; the carry is updated in
-    place and returned); the plain version on CPU tensors."""
+    place and returned); the plain version on CPU tensors. Each call is a
+    span, "rans.encode"."""
     global encode_launches
     _check(table, syms, "syms", n_valid)
     if table.device.type == "cpu":
@@ -344,12 +347,14 @@ def dec_init(words: torch.Tensor):
     return state, ptr
 
 
+@profiling.span("rans.decode")
 def decode_stage(carry, table: torch.Tensor, words: torch.Tensor, n_valid: int,
                  prev: torch.Tensor, stage: int):
     """Decode one stage's symbols (forward order) and advance the earlier
     bits: -> ((state, ptr), syms int32 [cap], advance_prev(prev, syms,
     stage)). The kernel on CUDA tensors (counted in `decode_launches`;
-    the carry is updated in place), the plain version on CPU tensors."""
+    the carry is updated in place), the plain version on CPU tensors. Each
+    call is a span, "rans.decode"."""
     global decode_launches
     _check(table, prev, "prev", n_valid)
     if not 0 <= stage <= 3:

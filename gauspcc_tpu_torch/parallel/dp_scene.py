@@ -34,6 +34,7 @@ from gauspcc_tpu_torch.models.hac import render as hac_render
 from gauspcc_tpu_torch.models.hac import train as hac_train
 from gauspcc_tpu_torch.parallel import dist as pdist
 from gauspcc_tpu_torch.render import raster
+from gauspcc_tpu_torch.utils import profiling
 
 
 def stack_cameras(cams: list) -> hac_render.CameraArrays:
@@ -62,6 +63,7 @@ def make_dp_scene_step(cfg, rcfg: raster.RasterConfig, optimizer, opt,
     gradients, and those gradients ("grads")."""
     replicated = [False]
 
+    @profiling.span("hac.step")
     def step(params, rest, opt_state, stats, cams, phase: int = 0, noise=None,
              generator=None):
         rank = torch.distributed.get_rank()

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from gauspcc_tpu_torch.render import tile_blend
+from gauspcc_tpu_torch.utils import profiling
 
 TILE = tile_blend.TILE
 
@@ -204,16 +205,18 @@ def rasterize(means3d: torch.Tensor, colors: torch.Tensor,
     means2d_extra: optional [N, 2] zeros, added to the projected screen
     positions for the blend only (the tile lists come from the projection),
     so its gradient is the per-Gaussian screen-space gradient."""
-    proj = project(means3d, scales, rotations, viewmatrix, cfg, valid)
-    mean2d = proj.mean2d
-    if means2d_extra is not None:
-        mean2d = mean2d + means2d_extra
-    with torch.no_grad():
+    with profiling.span("raster.project"):
+        proj = project(means3d, scales, rotations, viewmatrix, cfg, valid)
+        mean2d = proj.mean2d
+        if means2d_extra is not None:
+            mean2d = mean2d + means2d_extra
+    with torch.no_grad(), profiling.span("raster.tile_lists"):
         tile_start, pair_gauss, _ = _build_tile_lists(proj, cfg)
-    img = tile_blend.blend_tiles(
-        tile_start, pair_gauss, mean2d, proj.conic, opacities.reshape(-1),
-        colors, bg_color, tiles_x=cfg.tiles_x, height=cfg.height,
-        width=cfg.width, max_k=cfg.max_gaussians_per_tile)
+    with profiling.span("raster.blend"):
+        img = tile_blend.blend_tiles(
+            tile_start, pair_gauss, mean2d, proj.conic, opacities.reshape(-1),
+            colors, bg_color, tiles_x=cfg.tiles_x, height=cfg.height,
+            width=cfg.width, max_k=cfg.max_gaussians_per_tile)
     return img, proj.radius
 
 

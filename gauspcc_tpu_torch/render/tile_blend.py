@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from gauspcc_tpu_torch import native
+from gauspcc_tpu_torch.utils import profiling
 
 TILE = 16
 PIX = TILE * TILE
@@ -36,7 +37,9 @@ SCHED_SM_IDS = 1024  # per-SM rank counters in the schedule's scratch
 
 # Number of kernel launches made by `blend_tiles`: one per call of the C
 # entry, which launches the schedule's order_kernel and then blend_kernel.
-# Callers reset it to 0 to count the launches of one run.
+# Callers reset it to 0 to count the launches of one run. While the
+# recorder is on, each launch also counts "launches" in the innermost span
+# (utils/profiling.py).
 launches = 0
 # The same for the backward's C entry (order_kernel, then backward_kernel),
 # counted by `blend_tiles_backward`.
@@ -299,6 +302,7 @@ class _TileBlend(torch.autograd.Function):
                             device=mean2d.device)
         out = _launch(args, sched, **kw)
         launches += 1
+        profiling.count("launches")
         ctx.save_for_backward(*args, out)
         ctx.kw = kw
         return out
@@ -373,6 +377,7 @@ def blend_tiles_backward(tile_start: torch.Tensor, pair_gauss: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"tile_blend backward launch failed: CUDA error {rc}")
     backward_launches += 1
+    profiling.count("launches")
     return unpack_gradients(packed)
 
 

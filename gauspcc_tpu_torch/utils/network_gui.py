@@ -14,6 +14,8 @@ import socket
 
 import numpy as np
 
+from gauspcc_tpu_torch.utils import profiling
+
 
 class NetworkGUI:
     def __init__(self, host: str = "127.0.0.1", port: int = 6009):
@@ -90,6 +92,7 @@ class NetworkGUI:
         self.listener.close()
 
 
+@profiling.span("gui.frame_bytes")
 def image_to_bytes(img_chw: np.ndarray) -> bytes:
     """[3, H, W] float in [0,1] -> HWC uint8 bytes (viewer wire format)."""
     arr = np.clip(img_chw * 255.0, 0, 255).astype(np.uint8)

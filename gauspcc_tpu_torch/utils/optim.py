@@ -19,6 +19,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from gauspcc_tpu_torch.utils import profiling
+
 
 def expon_lr(lr_init, lr_final, max_steps, lr_delay_steps=0,
              lr_delay_mult=1.0, step_sub=0) -> Callable[[int], float]:
@@ -61,6 +63,7 @@ class GroupAdam:
                 "count": 0}
 
     @torch.no_grad()
+    @profiling.span("optim.update")
     def update(self, grads: dict[str, torch.Tensor], state: dict,
                leaves: dict[str, torch.Tensor]) -> dict:
         """One step: the moments and every leaf updated in place; returns
