@@ -18,7 +18,15 @@ non-zero exit and no result line:
           backward kernel against autograd of the plain version, for a
           seeded upstream gradient, on those tiles and on random tiles at
           K = 256, within gradient_tolerance; both on thin Gaussians near 45
-          degrees whose alpha lies at the 1/255 cut (cut_lists)
+          degrees whose alpha lies at the 1/255 cut (cut_lists); K3's backward
+          (the hash grid's table gradient) against its plain version at the
+          HAC training cell's shape (262,144 points: 159,990 anchors and the
+          bucket's padding rows at anchor 0, HACConfig's four tables), within
+          kernel_grad_tolerance of the exact gradient (a dropped chunk of
+          the longest row must lie outside it) and bit-identical over two
+          calls, timed beside its byte bound, the sort before it, the plain
+          version and autograd's index_put_ with accumulation (the call it
+          replaces)
   scene   the r5 soak scene (512x512, textured, white background, 6,000
           ground-truth Gaussians, 24 orbit cameras, 30,000 seed points)
           built on the card, ground truth rendered by the port
@@ -38,7 +46,8 @@ non-zero exit and no result line:
           steps with the soak's compressed phase schedule (phases 0, 1, 2)
           and densification at steps 100, 200 and 300: the loss per phase,
           the anchors after each densification, the raster caps, the
-          non-finite gradient count, both kernels' launches; checks a
+          non-finite gradient count, both kernels' launches and K3's
+          backward launches (more than 0: phase 2 trains the grid); checks a
           finite loss falling in phase 0, bits per parameter > 0 in phase
           2, and a held-out PSNR above the serve phase's. Then a step at
           phases 0 and 2 by wall clock, CUDA events and torch.profiler, its
@@ -268,7 +277,12 @@ and decode's for rANS; `launches_codec_train` for rANS, the trained
 weights' encode and decode of the held-out cloud; `launches_codec_engines`
 for rANS, the codec_engines phase's encodes and decodes; `launches_dp`,
 the dp phase's, in this process and on the gloo ranks; `launches_tools`,
-the tools phase's) and, last, {"ok": true, "device": {...}}. Nothing is
+the tools phase's; K3's backward has no TC-GS, CAT-3DGS or codec
+counts, as those paths build no hash grid: `launches` is the train
+phase's 600 steps, `launches_hac_plus` HAC++'s, `launches_dp` and
+`launches_tools` those phases' in this process, each counted around the
+runs that count the blend kernels; its library_ms is autograd's
+index_put_) and, last, {"ok": true, "device": {...}}. Nothing is
 written into the tree except the builds under gauspcc_tpu_torch/build/
 (gitignored); the codecs' streams, the handed-off state, the decoded
 points and the tools phase's runs go to temporary directories.
@@ -317,6 +331,7 @@ from gauspcc_tpu_torch.codecs.gauspcgc import model as pcgc_model
 from gauspcc_tpu_torch.codecs.gauspcgc import train as pcgc_train
 from gauspcc_tpu_torch.core import cdf, entropy
 from gauspcc_tpu_torch.core.quant import ste_multistep
+from gauspcc_tpu_torch.fields import hashgrid
 from gauspcc_tpu_torch.fields import triplane as tri
 from gauspcc_tpu_torch.models import registry
 from gauspcc_tpu_torch.models.cat3dgs import codec as cat_codec
@@ -380,6 +395,9 @@ ATOMIC_BYTES_PER_WARP_RECORD = 36
 # compressed phase schedule (600 steps: phase 0 to 300, 1 to 400, 2 after)
 # and densification at steps 100, 200 and 300
 TRAIN_STEPS = 600
+# K3's backward at the hac.train_rd cell's shape: its anchors, its bucket
+# (models/hac/model.py bucket_capacity), whose padding rows hold anchor 0
+GRID_ANCHORS, GRID_BUCKET = 159_990, 262_144
 TRAIN_DENSIFY = dict(start_stat=50, update_from=50, update_interval=100,
                      update_until=400)
 # reference phase: training steps of the small scene at phase 0 on the card
@@ -617,6 +635,161 @@ def device_profile(fn):
     top = sorted(((n, len(d), sum(d) / 1e3) for n, d in per_name.items()),
                  key=lambda t: -t[2])[:8]
     return busy_us / 1e3, len(spans), top
+
+
+def hac_grid_points(seed: int, device) -> torch.Tensor:
+    """Grid inputs [262,144, 3] shaped as the hac.train_rd cell's: 159,990
+    seeded anchors on a sphere shell and a floor, then the bucket's padding
+    rows at anchor 0, normalised by update_anchor_bound's box (the anchors'
+    bounds widened by 20%)."""
+    rng = np.random.default_rng(seed)
+    n_shell = GRID_ANCHORS * 2 // 3
+    shell = rng.standard_normal((n_shell, 3))
+    shell *= (0.8 + 0.02 * rng.standard_normal((n_shell, 1))) / np.linalg.norm(
+        shell, axis=1, keepdims=True)
+    floor = np.concatenate([rng.uniform(-1.5, 1.5, (GRID_ANCHORS - n_shell, 2)),
+                            np.full((GRID_ANCHORS - n_shell, 1), -0.9)], 1)
+    anchors = np.concatenate([shell, floor]).astype(np.float32)
+    lo, hi = anchors.min(0), anchors.max(0)
+    lo = np.where(lo < 0, lo * 1.2, lo * 0.8)
+    hi = np.where(hi > 0, hi * 1.2, hi * 0.8)
+    x = np.concatenate([anchors, np.zeros((GRID_BUCKET - GRID_ANCHORS, 3),
+                                          np.float32)])
+    return torch.from_numpy(((x - lo) / (hi - lo)).astype(np.float32)).to(device)
+
+
+def grid_slices(spec: hashgrid.MixedGridSpec, x: torch.Tensor) -> dict:
+    """The mixed grid's tables as MixedTables looks them up: name -> (spec,
+    the coordinates it takes from x [N, 3])."""
+    return {"xyz": (spec.xyz, x), "xy": (spec.plane, x[:, 0:2]),
+            "xz": (spec.plane, x[:, 0::2]), "yz": (spec.plane, x[:, 1:3])}
+
+
+def grid_lookups(spec: hashgrid.MixedGridSpec, x: torch.Tensor,
+                 gen: torch.Generator) -> dict:
+    """Per table of the mixed grid: (its spec, idx [N, L, C] int32, w [N, L,
+    C], a seeded output gradient [N, L * F] zeroed where the table's
+    coordinates are out of range, as the table gradient receives it)."""
+    out = {}
+    for name, (s, xs) in grid_slices(spec, x).items():
+        idxs, ws = zip(*hashgrid._level_lookups(s, xs))
+        g = torch.randn((x.shape[0], s.output_dim), generator=gen,
+                        device=x.device)
+        oob = ((xs < 0.0) | (xs > 1.0)).any(-1)
+        out[name] = (s, torch.stack([i.to(torch.int32) for i in idxs], 1),
+                     torch.stack(ws, 1), torch.where(oob[:, None], 0.0, g))
+    return out
+
+
+def library_table_grad(idx, w, g, rows: int) -> torch.Tensor:
+    """Autograd's table gradient as the plain encode takes it: level by
+    level, index_put_ with accumulation of the terms w * g (PyTorch's
+    sort-based indexing backward), into one table gradient."""
+    n, levels, _ = idx.shape
+    gl = g.reshape(n, levels, 1, -1)
+    out = torch.zeros((rows, gl.shape[-1]), dtype=torch.float32, device=g.device)
+    for lvl in range(levels):
+        out.index_put_((idx[:, lvl].long(),), gl[:, lvl] * w[:, lvl, :, None],
+                       accumulate=True)
+    return out
+
+
+def dropped_chunk_excess(idx, w, g, rows: int, got, tol) -> tuple[int, float]:
+    """The power of kernel_grad_tolerance on the longest row: the exact
+    gradient with the row's first CHUNK sorted lookups left out, as a K3
+    that dropped a chunk would give. Returns (the row's lookups, the largest
+    excess of that gradient's |diff| from K3's over the tolerance in the
+    row), which must be positive."""
+    keys, order = torch.sort(idx.reshape(-1), stable=True)
+    counts = torch.bincount(keys.long(), minlength=rows)
+    row = int(counts.argmax())
+    start = int(torch.searchsorted(keys, torch.tensor(row, dtype=torch.int32,
+                                                      device=keys.device)))
+    w_drop = w.reshape(-1).clone()
+    w_drop[order[start:start + hashgrid.CHUNK]] = 0.0
+    dropped = hashgrid.table_grad_reference(idx, w_drop.view(w.shape).double(),
+                                            g.double(), rows)
+    return int(counts[row]), float(((dropped[row] - got[row].double()).abs()
+                                    - tol[row]).max())
+
+
+def check_table_grads(dev) -> dict:
+    """K3's backward at the HAC training cell's shape, each of the four
+    tables: bit-identical over two calls, within kernel_grad_tolerance of
+    the exact gradient (the plain version in float64), and that tolerance
+    tight enough to see a dropped chunk of the longest row. Times it (the
+    sort and the kernel apart) beside its byte bound, the plain version and
+    autograd's index_put_. Returns the four tables' sums (device ms, bytes)
+    and the largest |diff| from the exact gradient."""
+    lookups = grid_lookups(hashgrid.make_mixed_spec(),
+                           hac_grid_points(SEED, dev),
+                           torch.Generator(device=dev).manual_seed(SEED))
+    totals = Counter()
+    for name, (s, idx, w, g) in lookups.items():
+        before = hashgrid.backward_launches
+        got = hashgrid.table_grad(idx, w, g, s.n_rows)
+        again = hashgrid.table_grad(idx, w, g, s.n_rows)
+        torch.cuda.synchronize()
+        if hashgrid.backward_launches != before + 2:
+            raise RuntimeError("table_grad did not launch K3")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"table {name}: K3's gradient differs between "
+                               "two calls on the same inputs")
+        exact = hashgrid.table_grad_reference(idx, w.double(), g.double(),
+                                              s.n_rows)
+        tol = hashgrid.kernel_grad_tolerance(idx, w, g, s.n_rows)
+        diff = (got.double() - exact).abs()
+        excess = float((diff - tol).max())
+        # the error in units of u sum|w g|, the bound's own scale
+        mags = hashgrid.table_grad_reference(idx, w.double().abs(),
+                                             g.double().abs(), s.n_rows)
+        in_u = float((diff / (hashgrid.F32_ULP * mags).clamp_min(1e-300)).max())
+        long_n, long_excess = dropped_chunk_excess(idx, w, g, s.n_rows, got, tol)
+        counts = torch.bincount(idx.reshape(-1).long(), minlength=s.n_rows)
+        log(f"  K3 table {name}: {idx.numel():,} lookups into {s.n_rows:,} "
+            f"rows ({int((counts == 0).sum()):,} unhit, longest run "
+            f"{int(counts.max()):,}); vs exact: max |diff| "
+            f"{float(diff.max()):.3e}, largest |diff| / (u sum|w g|) "
+            f"{in_u:.2f}, worst excess over kernel_grad_tolerance "
+            f"{excess:.3e}; one chunk of the {long_n:,}-lookup row dropped "
+            f"exceeds it by {long_excess:.3e}; bit-identical over two calls")
+        if not excess <= 0.0:
+            raise RuntimeError(f"table {name}: K3 outside kernel_grad_tolerance")
+        if not (long_n > hashgrid.CHUNK and long_excess > 0.0):
+            raise RuntimeError(f"table {name}: kernel_grad_tolerance does not "
+                               "see a dropped chunk of the longest row")
+        totals["max_abs_err"] = max(totals["max_abs_err"], float(diff.max()))
+        totals["err_in_u"] = max(totals["err_in_u"], in_u)
+        keys, order = torch.sort(idx.reshape(-1), stable=True)
+        times = {
+            "sort": device_ms(lambda: torch.sort(idx.reshape(-1), stable=True),
+                              10)[0],
+            "kernel": device_ms(lambda: hashgrid.launch_table_grad(
+                keys, order, w, g, s.n_rows), 10)[0],
+            "table_grad": device_ms(lambda: hashgrid.table_grad(
+                idx, w, g, s.n_rows), 10)[0],
+            "plain": cuda_ms(lambda: hashgrid.table_grad_reference(
+                idx, w, g, s.n_rows), 3),
+            "library": cuda_ms(lambda: library_table_grad(idx, w, g, s.n_rows),
+                               2),
+        }
+        # what the gradient needs, each read or written once: each lookup's
+        # int32 row and weight, the output gradient, the table gradient.
+        # The sorted keys (int32) and order (int64, torch.sort's) K3 reads
+        # are the design's cost, outside the bound.
+        nbytes = idx.numel() * (4 + 4) + g.numel() * 4 + got.numel() * 4
+        totals.update(times)
+        totals["bytes"] += nbytes
+        log(f"  K3 table {name} (device ms): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in times.items())
+            + f"; kernel bound {nbytes / 3.35e9:.4f} ms ({nbytes:,} bytes)")
+    bound = totals["bytes"] / 3.35e9
+    log(f"  K3 four tables (device ms): sort {totals['sort']:.4f}, kernel "
+        f"{totals['kernel']:.4f} (bound {bound:.4f}, "
+        f"{100 * bound / totals['kernel']:.1f}%), table_grad "
+        f"{totals['table_grad']:.4f}, plain {totals['plain']:.4f}, library "
+        f"(index_put_) {totals['library']:.4f}")
+    return dict(totals, bound_ms=bound)
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -2190,6 +2363,7 @@ def hac_plus_phase(dev, scene, serve_psnr: float, hac_sizes: dict) -> dict:
     launches of each kernel."""
     tile_blend.launches = 0
     tile_blend.backward_launches = 0
+    hashgrid.backward_launches = 0
     t0 = time.perf_counter()
     state, cfg, _, res = soak.train(
         scene, TRAIN_STEPS, model="hac_plus", voxel_size=VOXEL_SIZE,
@@ -2198,6 +2372,7 @@ def hac_plus_phase(dev, scene, serve_psnr: float, hac_sizes: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = tile_blend.launches, tile_blend.backward_launches
+    k3 = hashgrid.backward_launches
     nets = state["nets"]
     log(f"  HACPlusConfig: feat_dim {cfg.feat_dim} ({hacp.N_CHUNKS} chunks of "
         f"{cfg.chunk}), {cfg.n_offsets} offsets, mlp_grid "
@@ -2206,9 +2381,11 @@ def hac_plus_phase(dev, scene, serve_psnr: float, hac_sizes: dict) -> dict:
         f"({sum(p.numel() for p in nets.channel_ctx.parameters())} parameters)")
     log(f"  {TRAIN_STEPS} steps in {wall:.3f} s ({wall / TRAIN_STEPS * 1e3:.3f} "
         f"ms a step, densification and cap checks included); tile_blend "
-        f"launches {fwd}, backward launches {bwd}")
+        f"launches {fwd}, backward launches {bwd}; K3 backward launches {k3}")
     if fwd == 0 or bwd == 0:
         raise RuntimeError("HAC++ training did not launch both blend kernels")
+    if k3 == 0:
+        raise RuntimeError("HAC++ training did not launch K3's backward")
     training_report(res)
     # the channel context has no gradient before phase 2 (its objective is
     # the rate's), so what moved it is phase 2
@@ -2286,7 +2463,8 @@ def hac_plus_phase(dev, scene, serve_psnr: float, hac_sizes: dict) -> dict:
         f"a limit: the JAX package's float eval of a HAC++ state does not "
         f"quantise); size {sizes['total'] / hac_codec.BIT2MB:.4f} MB")
     return {"tile_blend": fwd, "tile_blend_backward": bwd,
-            "rans_encode": enc_launches, "rans_decode": dec["rans_decode"]}, sizes
+            "hashgrid_table_grad": k3, "rans_encode": enc_launches,
+            "rans_decode": dec["rans_decode"]}, sizes
 
 
 def context_ms(state, cfg) -> tuple[float, float, Counter]:
@@ -3065,6 +3243,7 @@ def dp_phase(dev, smi: str, scene, tstate, tcfg, topt, tres) -> dict[str, int]:
     start = (params0, rest0, tres["opt_state"], tres["stats"])
     tile_blend.launches = 0
     tile_blend.backward_launches = 0
+    hashgrid.backward_launches = 0
 
     def single_runs(cam, phase, noise, zero_stats=False) -> list[dict]:
         out = []
@@ -3348,7 +3527,8 @@ def dp_phase(dev, smi: str, scene, tstate, tcfg, topt, tres) -> dict[str, int]:
     del s_straight, s_again, s_cut, s_res, s_next, resumed_next
     lap("(e)")
 
-    launches = (tile_blend.launches, tile_blend.backward_launches)
+    launches = (tile_blend.launches, tile_blend.backward_launches,
+                hashgrid.backward_launches)
     # the dry run, as a user runs it
     t0 = time.perf_counter()
     dry = subprocess.run(
@@ -3367,11 +3547,13 @@ def dp_phase(dev, smi: str, scene, tstate, tcfg, topt, tres) -> dict[str, int]:
     log(f"  K1 launches in the phase: {launches[0] + scene_launches[0]} forward, "
         f"{launches[1] + scene_launches[1]} backward (this process "
         f"{launches[0]} / {launches[1]}, the gloo ranks {scene_launches[0]} / "
-        f"{scene_launches[1]}; the dry run's rank is not counted)")
+        f"{scene_launches[1]}; the dry run's rank is not counted); K3 "
+        f"backward launches in this process {launches[2]}")
     if not (launches[0] and launches[1] and scene_launches[0] and scene_launches[1]):
         raise RuntimeError("the DP steps did not launch both blend kernels")
     return {"tile_blend": launches[0] + scene_launches[0],
-            "tile_blend_backward": launches[1] + scene_launches[1]}
+            "tile_blend_backward": launches[1] + scene_launches[1],
+            "hashgrid_table_grad": launches[2]}
 
 
 def rotmat_to_qvec(r: np.ndarray) -> np.ndarray:
@@ -3480,16 +3662,18 @@ def tools_phase(dev, smi: str, scene, tstate, tcfg) -> dict[str, int]:
     launches of each kernel."""
     log(f"  card: {smi} (every time below is on it)")
     launches = dict.fromkeys(("tile_blend", "tile_blend_backward",
-                              "rans_encode", "rans_decode"), 0)
+                              "rans_encode", "rans_decode",
+                              "hashgrid_table_grad"), 0)
 
     def count():
         tile_blend.launches = tile_blend.backward_launches = 0
         rans.encode_launches = rans.decode_launches = 0
+        hashgrid.backward_launches = 0
 
     def counted() -> tuple[int, int, int, int]:
         got = (tile_blend.launches, tile_blend.backward_launches,
                rans.encode_launches, rans.decode_launches)
-        for k, v in zip(launches, got):
+        for k, v in zip(launches, got + (hashgrid.backward_launches,)):
             launches[k] += v
         return got
 
@@ -3887,7 +4071,7 @@ def main() -> int:
             f"{torch.cuda.device_count()} device(s)")
 
     with Phase("build"):
-        sources = ("tile_blend", "rans")
+        sources = ("tile_blend", "rans", "hashgrid")
         hosts = ("ac_coder", "neighbor")
         with ThreadPoolExecutor(len(sources) + len(hosts)) as pool:
             host_builds = [pool.submit(native.load_host, h) for h in hosts]
@@ -3943,6 +4127,7 @@ def main() -> int:
                 f"{float(diff.max()):.3e}, "
                 f"{int((diff > atol_c + rtol_c * cut_want.abs()).sum())} values "
                 f"outside the tolerance (reported, not checked)")
+        k3 = check_table_grads(dev)
 
     with Phase("scene"):
         scene = soak.build_scene(np.random.default_rng(SEED), HW, N_GT, N_CAMS,
@@ -4111,6 +4296,7 @@ def main() -> int:
     with Phase("train"):
         tile_blend.launches = 0
         tile_blend.backward_launches = 0
+        hashgrid.backward_launches = 0
         t0 = time.perf_counter()
         tstate, tcfg, topt, tres = soak.train(
             scene, TRAIN_STEPS, voxel_size=VOXEL_SIZE, white_background=True,
@@ -4126,6 +4312,10 @@ def main() -> int:
             f"backward launches {bwd_launches}")
         if train_launches == 0 or bwd_launches == 0:
             raise RuntimeError("training did not launch both blend kernels")
+        k3_train = hashgrid.backward_launches
+        log(f"  K3 backward launches {k3_train}")
+        if k3_train == 0:
+            raise RuntimeError("phase 2's steps did not launch K3's backward")
         training_report(tres)
         rcfg_t = tres["rcfg"]
         trained = pipeline.evaluate(tstate, tcfg, scene.test_cameras,
@@ -4162,13 +4352,26 @@ def main() -> int:
             walls = sorted(wall_ms(lambda: one_step(ph), 10))
             events = cuda_ms(lambda: one_step(ph), 10)
             tile_blend.backward_launches = 0
+            hashgrid.backward_launches = 0
+            profiling.reset()
             busy, n_dev, top = device_profile(lambda: one_step(ph))
             per_step = tile_blend.backward_launches
             step_ms[ph] = walls[5]
             log(f"  step at phase {ph}: host wall clock with a sync at each "
                 f"end, 10 steps: min {walls[0]:.4f}, median {walls[5]:.4f}, max "
                 f"{walls[-1]:.4f} ms; CUDA events over 10 back-to-back steps "
-                f"{events:.4f} ms; backward launches in one step {per_step}")
+                f"{events:.4f} ms; backward launches in one step {per_step}, "
+                f"K3's {hashgrid.backward_launches}")
+            # the recorder's view of the traced step: K3 counted in the
+            # backward, its span's device time
+            grid = [sp for sp in profiling.spans() if sp.name == "hac.grid.bwd"]
+            counted = profiling.counters().get("grid_bwd_launches", 0)
+            log(f"  traced phase-{ph} step: grid_bwd_launches {counted}, "
+                f"hac.grid.bwd spans {len(grid)}"
+                + "".join(f", {sp.device_ms:.4f} ms" for sp in grid))
+            if ph == 2 and (counted != 4 or len(grid) != 1):
+                raise RuntimeError("a traced phase-2 step did not count K3's "
+                                   "four launches in one hac.grid.bwd")
             idle = (f"idle share {1 - busy / walls[5]:.4f} of the median wall "
                     f"clock" if n_dev else "idle share not measured")
             log(f"  one phase-{ph} step under torch.profiler: {n_dev} device "
@@ -4452,6 +4655,22 @@ def main() -> int:
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
         "library_ms": None,
+    }, {
+        "name": "hashgrid_table_grad",
+        "route": "cuda",
+        "source": "gauspcc_tpu_torch/csrc/hashgrid.cu",
+        # no TPU kernel: XLA's transpose of the table gather
+        "replaces": "gauspcc_tpu/fields/hashgrid.py:18",
+        "launches": k3_train,
+        "launches_hac_plus": hacp_launches["hashgrid_table_grad"],
+        "launches_dp": dp_launches["hashgrid_table_grad"],
+        "launches_tools": tools_launches["hashgrid_table_grad"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["kernel"],
+        "plain_ms": k3["plain"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k3["library"],
     }, *codec_rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,7 +12,10 @@ import pytest
 import torch
 
 import chip_smoke
+from gauspcc_tpu_torch.core.quant import ste_binary
+from gauspcc_tpu_torch.fields import hashgrid
 from gauspcc_tpu_torch.render import raster, tile_blend
+from gauspcc_tpu_torch.utils import profiling
 
 
 @pytest.fixture
@@ -970,3 +973,167 @@ def test_dp_under_nccl_with_one_rank(cuda_device, tmp_path):
                                       [{"grad": g} for g, _ in runs])
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _k3_against_plain(idx, w, g, rows):
+    """K3's gradient twice (bit-identical, two launches) and within
+    kernel_grad_tolerance of the exact gradient (the plain version in
+    float64): K3 rounds each term along a path of at most 5 + CHUNK / 32
+    + ceil(n / CHUNK) additions. Returns K3's gradient and the tolerance."""
+    before = hashgrid.backward_launches
+    got = hashgrid.table_grad(idx, w, g, rows)
+    again = hashgrid.table_grad(idx, w, g, rows)
+    torch.cuda.synchronize()
+    assert hashgrid.backward_launches == before + 2
+    assert torch.equal(got, again)
+    exact = hashgrid.table_grad_reference(idx, w.double(), g.double(), rows)
+    tol = hashgrid.kernel_grad_tolerance(idx, w, g, rows)
+    assert got.shape == exact.shape and bool(torch.isfinite(got).all())
+    assert float(((got.double() - exact).abs() - tol).max()) <= 0.0
+    return got, tol
+
+
+@pytest.mark.cuda
+def test_table_grad_kernel_matches_plain_version_at_the_cell_shape(cuda_device):
+    """K3 at the hac.train_rd cell's shape: 262,144 points (159,990 anchors
+    and the bucket's padding rows at anchor 0), HACConfig's full spec, each
+    of the four tables."""
+    lookups = chip_smoke.grid_lookups(
+        hashgrid.make_mixed_spec(), chip_smoke.hac_grid_points(0, cuda_device),
+        torch.Generator(device=cuda_device).manual_seed(0))
+    for s, idx, w, g in lookups.values():
+        got, tol = _k3_against_plain(idx, w, g, s.n_rows)
+        counts = torch.bincount(idx.reshape(-1).long(), minlength=s.n_rows)
+        # the padding rows' cell
+        assert int(counts.max()) >= chip_smoke.GRID_BUCKET - chip_smoke.GRID_ANCHORS
+        assert bool((got[counts == 0] == 0).all())
+        # the tolerance sees one chunk of that row left out
+        n, excess = chip_smoke.dropped_chunk_excess(idx, w, g, s.n_rows, got, tol)
+        assert n == int(counts.max()) and excess > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["one_row", "aligned_runs", "ragged",
+                                    "single_lookup", "four_features"])
+def test_table_grad_kernel_at_chunk_edges(cuda_device, layout):
+    """Runs that start, end or lie exactly on K3's chunk edges, one run over
+    many chunks, a partial last chunk, unhit rows, one lookup, F = 4."""
+    gen = torch.Generator().manual_seed(len(layout))
+    chunk, corners, f, rows = hashgrid.CHUNK, 8, 2, 5000
+    if layout == "one_row":  # every lookup in one row: 3 chunks and a bit
+        keys = torch.full((3 * chunk + 40,), 17)
+    elif layout == "aligned_runs":  # runs of exactly one chunk, then 32
+        keys = torch.cat([torch.full((chunk,), r) for r in (3, 9, 4000)]
+                         + [torch.full((32,), r) for r in range(100, 164)])
+    elif layout == "single_lookup":
+        corners, keys = 1, torch.tensor([rows - 1])
+    else:  # random rows, a few of them hot, in random order
+        if layout == "four_features":
+            f = 4
+        keys = torch.randint(0, rows, (7 * chunk + 8 * 129,), generator=gen)
+        hot = torch.rand(keys.shape, generator=gen) < 0.4
+        keys = torch.where(hot, torch.randint(0, 3, keys.shape, generator=gen), keys)
+    m = keys.numel() - keys.numel() % corners
+    keys = keys[torch.randperm(keys.numel(), generator=gen)][:m]
+    n = m // corners
+    idx = keys.reshape(n, 1, corners).to(torch.int32).to(cuda_device)
+    w = torch.rand((n, 1, corners), generator=gen).to(cuda_device)
+    g = torch.randn((n, f), generator=gen).to(cuda_device)
+    got, tol = _k3_against_plain(idx, w, g, rows)
+    if layout == "one_row":  # a dropped chunk lies outside the tolerance
+        n, excess = chip_smoke.dropped_chunk_excess(idx, w, g, rows, got, tol)
+        assert n == m and excess > 0.0
+
+
+@pytest.mark.cuda
+def test_grid_on_card_takes_k3_for_the_table_gradient(cuda_device):
+    """MixedTables on a CUDA table under grad: the forward bit-identical to
+    the no-grad call's (the plain path), one K3 launch a table, each table's
+    gradient within table_grad_tolerance of autograd's through the plain
+    gather (the STE passing it through) and within kernel_grad_tolerance of
+    the exact one, and the same bits a second time."""
+    kw = dict(n_features=2, resolutions_3d=(18, 44, 130, 300),
+              log2_hashmap_size=15, resolutions_2d=(130, 514),
+              log2_hashmap_size_2d=13)
+    spec = hashgrid.make_mixed_spec(**kw)
+    mod = hashgrid.MixedTables(spec).init_uniform(np.random.default_rng(1),
+                                                  std=1.5).to(cuda_device)
+    x = torch.rand((20_000, 3), generator=torch.Generator().manual_seed(2))
+    x[:9000] = x[0]  # long runs: past a chunk in every level
+    x[-2:] = torch.tensor([[-0.2, 0.5, 0.5], [0.5, 1.3, 0.5]])
+    x = x.to(cuda_device)
+    with torch.no_grad():
+        plain = mod(x)
+    params = [getattr(mod, n) for n in hashgrid.TABLE_NAMES]
+    g = torch.randn(plain.shape, generator=torch.Generator().manual_seed(3)
+                    ).to(cuda_device)
+    grads = []
+    for _ in range(2):
+        before = hashgrid.backward_launches
+        out = mod(x)
+        assert torch.equal(out, plain)
+        grads.append(torch.autograd.grad(out, params, g))
+        torch.cuda.synchronize()
+        assert hashgrid.backward_launches == before + 4
+    at = 0
+    for p, a, b, (s, xs) in zip(params, *grads,
+                                chip_smoke.grid_slices(spec, x).values()):
+        assert torch.equal(a, b)
+        idxs, ws = zip(*hashgrid._level_lookups(s, xs))
+        oob = ((xs < 0.0) | (xs > 1.0)).any(-1)
+        g_t = torch.where(oob[:, None], 0.0, g[:, at:at + s.output_dim])
+        at += s.output_dim
+        leaf = p.detach().requires_grad_(True)
+        tb = ste_binary(leaf)
+        ref = torch.cat([hashgrid._interpolate(tb, i, w_l)
+                         for i, w_l in zip(idxs, ws)], -1)
+        want, = torch.autograd.grad(ref, leaf, g_t)
+        idx = torch.stack([i.to(torch.int32) for i in idxs], 1)
+        w = torch.stack(ws, 1)
+        tol = hashgrid.table_grad_tolerance(idx, w, g_t, s.n_rows)
+        assert float(((a - want).abs() - tol).max()) <= 0.0
+        exact = (hashgrid.table_grad_reference(idx, w.double(), g_t.double(),
+                                               s.n_rows)
+                 * (p.detach().abs() <= 1.0))  # the STE's pass-through
+        tol = hashgrid.kernel_grad_tolerance(idx, w, g_t, s.n_rows)
+        assert float(((a.double() - exact).abs() - tol).max()) <= 0.0
+
+
+@pytest.mark.cuda
+def test_traced_grid_backward_counts_k3_inside_its_span(cuda_device,
+                                                         monkeypatch):
+    """Under a profiler the recorder counts one grid_bwd_launches a table in
+    the backward, in the span open around it (backward spans take no
+    counts), and every launch falls inside the span hac.grid.bwd."""
+    spec = hashgrid.make_mixed_spec(
+        n_features=2, resolutions_3d=(18, 44), log2_hashmap_size=14,
+        resolutions_2d=(130,), log2_hashmap_size_2d=12)
+    mod = hashgrid.MixedTables(spec).init_uniform(np.random.default_rng(0),
+                                                  std=1.5).to(cuda_device)
+    x = torch.rand((5000, 3), generator=torch.Generator().manual_seed(0)
+                   ).to(cuda_device)
+    params = [getattr(mod, n) for n in hashgrid.TABLE_NAMES]
+    at_launch = []
+    launch = hashgrid.launch_table_grad
+
+    def marked(*args):
+        at_launch.append(profiling.mark().ns)
+        return launch(*args)
+
+    monkeypatch.setattr(hashgrid, "launch_table_grad", marked)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        profiling.reset()
+        with profiling.span("step"):
+            out = mod(x)
+            with profiling.span("backward"):
+                torch.autograd.grad(out, params, torch.ones_like(out))
+        torch.cuda.synchronize()
+    spans = profiling.spans()
+    grid = [sp for sp in spans if sp.name == "hac.grid.bwd"]
+    assert len(grid) == 1 and grid[0].device_ms > 0.0
+    assert len(at_launch) == 4
+    assert all(grid[0].start_ns <= t <= grid[0].end_ns for t in at_launch)
+    by_name = {sp.name: sp.counters for sp in spans}
+    assert by_name["backward"].get("grid_bwd_launches") == 4
+    assert profiling.counters()["grid_bwd_launches"] == 4
