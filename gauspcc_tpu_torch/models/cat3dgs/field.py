@@ -29,6 +29,7 @@ from torch import nn
 from gauspcc_tpu_torch.core.quant import ste_round
 from gauspcc_tpu_torch.fields import triplane as tri
 from gauspcc_tpu_torch.models.cat3dgs import arm
+from gauspcc_tpu_torch.utils import profiling
 
 GROUPS = ("xy", "xz", "yz")  # one ARM for each plane of every scale
 
@@ -161,24 +162,36 @@ def plane_noise(field: Field, generator: torch.Generator | None = None) -> list:
 def sample(field: Field, cfg: FieldConfig, x: torch.Tensor,
            planes_q: list | None = None) -> torch.Tensor:
     """The features of x [N, 3] read from the (de)quantised planes, [N, 3
-    n_feat n_scales]: the scales side by side."""
+    n_feat n_scales]: the scales side by side. While the recorder is on,
+    its backward is the span `cat.field.bwd`: from the features' gradient
+    to the last scale's dequantised planes' (the taps' scatter-add)."""
     z = normalize(field, cfg, x)
     if planes_q is None:
         planes_q = quantized_planes(field)
-    return torch.cat([tri.sample_triplane(p / gain(field, i), z,
-                                          apply_contract=False)
-                      for i, p in enumerate(planes_q)], -1)
+    planes = [p / gain(field, i) for i, p in enumerate(planes_q)]
+    out = torch.cat([tri.sample_triplane(p, z, apply_contract=False)
+                     for p in planes], -1)
+    profiling.backward_span("cat.field.bwd", out, planes)
+    return out
 
 
+@profiling.span("cat.arm_rate")
 def field_rate_bits(field: Field, planes_q: list | None = None) -> torch.Tensor:
     """The ARMs' bits of every quantised latent (training's rate), plane by
-    plane and channel by channel."""
+    plane and channel by channel. Its forward is the span `cat.arm_rate`,
+    which counts `arm_planes` (one a `plane_rate` call); while the recorder
+    is on, its backward is the span `cat.arm_rate.bwd`: from the total's
+    gradient to the last latent plane's."""
     if planes_q is None:
         planes_q = quantized_planes(field)
     total = 0.0
+    latents = []
     for planes in planes_q:
         for p, g in enumerate(GROUPS):
             for c in range(planes.shape[1]):
-                bits, _, _ = arm.plane_rate(field.arms[g], planes[p, c])
+                latents.append(planes[p, c])
+                bits, _, _ = arm.plane_rate(field.arms[g], latents[-1])
+                profiling.count("arm_planes")
                 total = total + bits
+    profiling.backward_span("cat.arm_rate.bwd", total, latents)
     return total

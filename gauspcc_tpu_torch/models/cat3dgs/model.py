@@ -27,6 +27,7 @@ from gauspcc_tpu_torch.core.nn import MLP2
 from gauspcc_tpu_torch.device import resolve
 from gauspcc_tpu_torch.models.cat3dgs import field as cat_field
 from gauspcc_tpu_torch.models.hac import model as hac
+from gauspcc_tpu_torch.utils import profiling
 
 
 class CATConfig(NamedTuple):
@@ -135,11 +136,13 @@ def set_pca_frame(state: hac.State, cfg: CATConfig) -> hac.State:
     return state
 
 
+@profiling.span("cat.field")
 def hyper_split(state: hac.State, cfg: CATConfig, anchor: torch.Tensor,
                 planes_q: list | None = None) -> dict:
     """The triplane hyperprior of anchors [N, 3]: slice 0's mean0/scale0,
     the scaling's and the offsets' Gaussians and the three steps (the
-    adjusters applied to cfg's base steps)."""
+    adjusters applied to cfg's base steps). Its forward is the span
+    `cat.field`."""
     nets = state["nets"]
     out = nets.mlp_attr(cat_field.sample(nets.field, cfg.field, anchor, planes_q))
     s0, k = cfg.slice0, cfg.n_offsets

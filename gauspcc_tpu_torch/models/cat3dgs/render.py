@@ -15,6 +15,10 @@ mean(sigmoid(mask)), from phase 2 lmbda times the rate; phase 3's loss is
 the planes' bits over that denominator alone. `grad_mask` freezes the
 groups each phase leaves alone.
 
+Spans (`utils/profiling.py`, recorded only under a profiler):
+`cat.chcm`, the channel-wise context's forward; the field's and the ARMs'
+own in `model.py` and `field.py`.
+
 The noise is the caller's draws `noise` = (u_feat, u_scaling, u_offsets)
 in [0, 1) as HAC's, with from phase 2 a fourth entry, the planes' noise in
 [-0.5, 0.5) (one tensor a scale); or comes from `generator`.
@@ -31,6 +35,7 @@ from gauspcc_tpu_torch.models.cat3dgs import model as cat
 from gauspcc_tpu_torch.models.hac import model as hac
 from gauspcc_tpu_torch.models.hac import render as hac_render
 from gauspcc_tpu_torch.render import raster
+from gauspcc_tpu_torch.utils import profiling
 
 FIT_ITER = 10_000
 
@@ -105,8 +110,9 @@ def rate_gaussians(state, cfg: cat.CATConfig, camera_center, visible, noise,
     grid_offsets = uniform_noise_quant(anchors["offset"],
                                        hyper["q_offsets"][:, None, :], u_offsets,
                                        generator=generator)
-    hyper = cat.chcm_adjust(state, cfg, hyper, feat)
-    f_mean, f_scale = cat.feature_stats(state, cfg, hyper, feat)
+    with profiling.span("cat.chcm"):
+        hyper = cat.chcm_adjust(state, cfg, hyper, feat)
+        f_mean, f_scale = cat.feature_stats(state, cfg, hyper, feat)
     bit_feat = entropy.gaussian_bits(
         feat, f_mean, f_scale, hyper["q_feat"],
         x_mean=anchors["anchor_feat"].mean()) * sel
@@ -138,7 +144,8 @@ def training_loss(params, rest, cfg: cat.CATConfig,
                   lambda_dssim: float = 0.2, mask_weights=None, *,
                   generator: torch.Generator | None = None):
     """CAT-3DGS's objective for one view (the module's docstring). Returns
-    (loss, aux), aux as HAC's."""
+    (loss, aux), aux as HAC's, from phase 2 with `arm_bit_per_param`, the
+    planes' bits over the rate's denominator."""
     state = hac.merge_state(params, rest)
     base = cfg.as_hac()
     visible = hac_render.prefilter_voxel(state, base, cam, rcfg)
@@ -161,6 +168,7 @@ def training_loss(params, rest, cfg: cat.CATConfig,
     if rate is not None:
         loss = loss + lmbda * rate
         aux["bit_per_param"] = rate
+        aux["arm_bit_per_param"] = arm_rate
     if phase == 3:
         loss = arm_rate
     return loss, aux

@@ -19,7 +19,8 @@ one (`pipeline.train_scene`). `--gui` serves the SIBR remote viewer on
 <model_dir>/test_renders (train also the float ones to float_renders) and
 results.json with PSNR, SSIM and LPIPS. HAC++ takes the tiny
 channel context on a Blender scene, as the JAX CLI does; CAT-3DGS splits
-the features into two chcm slices of half `--feat_dim` each (the JAX
+the features into the chcm slices `--chcm_slices` gives (the published
+run's `5 10 15 20`), by default two halves of `--feat_dim` (the JAX
 config's (25, 25) at its default 50). Runs on the card unless `--device
 cpu` is given.
 """
@@ -50,6 +51,14 @@ def cmd_train(args):
     from gauspcc_tpu_torch.models.hac import pipeline
     from gauspcc_tpu_torch.models.hac import train as hac_train
 
+    half = args.feat_dim // 2
+    slices = (tuple(args.chcm_slices) if args.chcm_slices
+              else (half, args.feat_dim - half))
+    if args.chcm_slices is not None and args.model != "cat3dgs":
+        raise SystemExit("--chcm_slices is CAT-3DGS's (--model cat3dgs)")
+    if sum(slices) != args.feat_dim:
+        raise SystemExit(f"--chcm_slices {list(slices)} do not sum to "
+                         f"--feat_dim {args.feat_dim}")
     family = registry.get_family(args.model)
     dev = resolve(args.device)
     pcc_params, pcc_cfg = _load_pcc(args, dev)
@@ -66,8 +75,7 @@ def cmd_train(args):
     if args.model == "hac_plus":
         kw["tiny_ctx"] = scene.is_blender
     if args.model == "cat3dgs":
-        half = args.feat_dim // 2
-        kw["chcm_slices"] = (half, args.feat_dim - half)
+        kw["chcm_slices"] = slices
     cfg = family.make_config(**kw)
     opt = hac_train.OptConfig(iterations=args.iterations, lmbda=args.lmbda)
     os.makedirs(args.model_path, exist_ok=True)
@@ -158,6 +166,9 @@ def main(argv=None):
     t.add_argument("--log2", type=int, default=19)
     t.add_argument("--log2_2D", type=int, default=17)
     t.add_argument("--n_features", type=int, default=2)
+    t.add_argument("--chcm_slices", type=int, nargs="+", default=None,
+                   help="CAT-3DGS's feature slices, summing to --feat_dim "
+                   "(the published run: 5 10 15 20); by default two halves")
     t.add_argument("--iterations", type=int, default=30_000)
     t.add_argument("--lmbda", type=float, default=1e-3)
     t.add_argument("--eval", action="store_true", default=True)

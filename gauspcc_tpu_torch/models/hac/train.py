@@ -143,13 +143,16 @@ class StepGradients(NamedTuple):
 
 def step_gradients(cfg, rcfg: raster.RasterConfig, opt: OptConfig, params,
                    rest, cam, phase: int = 0, noise=None, generator=None, *,
-                   loss_fn=None, grad_mask=None,
-                   white_background: bool = False) -> StepGradients:
+                   loss_fn=None, grad_mask=None, white_background: bool = False,
+                   mask_weights=None) -> StepGradients:
     """The body of a train step up to the update, on one camera: the
     objective's gradients (the family's frozen groups zeroed by
     `grad_mask(grads, phase)`) and the statistics' increments
-    (training_statis). The single step and the data-parallel step
-    (`parallel/dp_scene.py`) both run this."""
+    (training_statis). `mask_weights` (per-anchor [cap], or None) goes to
+    the family's objective only when given: CAT-3DGS's view-frequency
+    weights of its mask (`models/cat3dgs/render.py` `weighted_mask`). The
+    single step and the data-parallel step (`parallel/dp_scene.py`) both
+    run this."""
     if loss_fn is None:
         loss_fn = hac_render.training_loss
     leaves = param_leaves(params)
@@ -161,9 +164,10 @@ def step_gradients(cfg, rcfg: raster.RasterConfig, opt: OptConfig, params,
     with torch.enable_grad():
         for t in leaves.values():
             t.requires_grad_(True)
+        weights = {} if mask_weights is None else {"mask_weights": mask_weights}
         loss, aux = loss_fn(
             params, rest, cfg, cam, rcfg, bg, phase, noise, m2d, opt.lmbda,
-            opt.lambda_dssim, generator=generator)
+            opt.lambda_dssim, generator=generator, **weights)
         with profiling.span("hac.backward"):
             got = torch.autograd.grad(loss, [*leaves.values(), m2d],
                                       allow_unused=True)
@@ -220,31 +224,38 @@ def make_train_step(cfg, rcfg: raster.RasterConfig, optimizer: optim.GroupAdam,
                     opt: OptConfig, loss_fn=None, grad_mask=None,
                     white_background: bool = False):
     """step(params, rest, opt_state, stats, cam, phase=0, noise=None,
-    generator=None) -> (params, opt_state, stats, metrics).
+    generator=None, mask_weights=None) -> (params, opt_state, stats,
+    metrics).
 
     `cam` carries its ground-truth image (CameraArrays.from_camera(...,
     with_image=True)); `noise`/`generator` feed the phase's quantization
-    noise (see generate_neural_gaussians). `loss_fn` is the family's
-    objective, HAC's by default (same signature and aux); `grad_mask(grads,
-    phase)` returns the gradients (by leaf name) with the family's frozen
-    groups zeroed. The leaves, the moments and the statistics are updated
-    in place. metrics (tensors: no host sync): loss, l1, psnr,
-    bit_per_param, nonfinite_grads."""
+    noise (see generate_neural_gaussians); `mask_weights` as for
+    step_gradients. `loss_fn` is the family's objective, HAC's by default
+    (same signature and aux); `grad_mask(grads, phase)` returns the
+    gradients (by leaf name) with the family's frozen groups zeroed. The
+    leaves, the moments and the statistics are updated in place. metrics
+    (tensors: no host sync): loss, l1, psnr, bit_per_param,
+    nonfinite_grads, and arm_bit_per_param where the objective gives it
+    (CAT-3DGS's planes' share of the rate)."""
 
     @profiling.span("hac.step")
     def step_fn(params, rest, opt_state, stats, cam, phase: int = 0,
-                noise=None, generator=None):
+                noise=None, generator=None, mask_weights=None):
         g = step_gradients(cfg, rcfg, opt, params, rest, cam, phase, noise,
                            generator, loss_fn=loss_fn, grad_mask=grad_mask,
-                           white_background=white_background)
+                           white_background=white_background,
+                           mask_weights=mask_weights)
         opt_state, nonfinite = apply_gradients(optimizer, g.grads, opt_state,
                                                param_leaves(params))
         add_stats_(stats, g.increments)
-        return params, opt_state, stats, {
+        metrics = {
             "loss": g.loss, "l1": g.aux["l1"].detach(),
             "psnr": g.aux["psnr"].detach(),
             "bit_per_param": g.aux["bit_per_param"].detach(),
             "nonfinite_grads": nonfinite}
+        if "arm_bit_per_param" in g.aux:
+            metrics["arm_bit_per_param"] = g.aux["arm_bit_per_param"].detach()
+        return params, opt_state, stats, metrics
 
     return step_fn
 

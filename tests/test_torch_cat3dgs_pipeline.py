@@ -151,6 +151,32 @@ def test_cli_trains_and_evaluates_cat3dgs_on_cpu(tmp_path, small_codec):
     assert again["psnr"] == pytest.approx(results["psnr"], abs=1e-6)
 
 
+def test_cli_takes_the_published_chcm_slices(tmp_path, small_codec):
+    """`--chcm_slices` gives CAT-3DGS the published run's split (here its
+    form at feat_dim 8: four slices, three chcm heads, each from the slices
+    before it); a split that does not sum to --feat_dim, or one given to
+    another family, stops the command before it reads anything."""
+    root = str(tmp_path / "scene")
+    write_colmap_fixture(root, n_images=6, wh=32, n_points=150)
+    model_dir = str(tmp_path / "out")
+    args = ["train", "-s", root, "-m", model_dir, "--voxel_size", "0.05",
+            "--iterations", "5", "--feat_dim", "8", "--n_offsets", "3",
+            "--pcc_ckpt", small_codec, "--pcc_channels", "8",
+            "--pcc_kernel_size", "3", "--device", "cpu"]
+    with pytest.raises(SystemExit, match="do not sum"):
+        cli.main(args + ["--model", "cat3dgs", "--chcm_slices", "5", "10"])
+    with pytest.raises(SystemExit, match="cat3dgs"):
+        cli.main(args + ["--model", "hac", "--chcm_slices", "4", "4"])
+    assert not os.path.exists(model_dir)
+    cli.main(args + ["--model", "cat3dgs", "--chcm_slices", "1", "2", "2", "3"])
+    meta = json.load(open(os.path.join(model_dir, "cfg.json")))
+    assert meta["hac"]["chcm_slices"] == [1, 2, 2, 3]
+    with np.load(os.path.join(model_dir, "model.npz")) as data:
+        heads = sorted(k for k in data.files
+                       if k.startswith("nets/mlp_chcm/") and k.endswith("fc0/w"))
+        assert [data[k].shape for k in heads] == [(1, 16), (3, 16), (5, 16)]
+
+
 def test_soak_main_trains_cat3dgs_on_cpu(tmp_path):
     """soak.main --model cat3dgs at a smoke size, at the full CATConfig
     width, with the codec the r5 soak coded its anchors with: the networks

@@ -312,11 +312,19 @@ def test_a_reader_reads_none_without_its_span(name, monkeypatch):
     assert reader.read(_run(kernels, units)) is None
 
 
+# readers listed for more than one cell: both training cells run GroupAdam
+# under hac.step
+SHARED_READERS = {"optim_ms.train": ["hac.train_rd", "cat3dgs.train_rd"]}
+
+
 def test_the_readers_are_in_the_benchmark():
     per_layer = {m["name"]: m for m in harness.benchmark()["per_layer"]}
     for name in READERS:
         assert per_layer[name]["source"] == "program_span"
-        assert len(per_layer[name]["workloads"]) == 1
+        if name in SHARED_READERS:
+            assert per_layer[name]["workloads"] == SHARED_READERS[name]
+        else:
+            assert len(per_layer[name]["workloads"]) == 1
 
 
 # ---------------------------------------------------------------------------
