@@ -162,15 +162,16 @@ def plane_noise(field: Field, generator: torch.Generator | None = None) -> list:
 def sample(field: Field, cfg: FieldConfig, x: torch.Tensor,
            planes_q: list | None = None) -> torch.Tensor:
     """The features of x [N, 3] read from the (de)quantised planes, [N, 3
-    n_feat n_scales]: the scales side by side. While the recorder is on,
-    its backward is the span `cat.field.bwd`: from the features' gradient
-    to the last scale's dequantised planes' (the taps' scatter-add)."""
+    n_feat n_scales]: the scales side by side (`tri.sample_triplanes`:
+    under grad, at one of K3's widths, one lookup over every scale's
+    planes, whose gradient is one `hashgrid.table_grad`). While the
+    recorder is on, its backward is the span `cat.field.bwd`: from the
+    features' gradient to the last scale's dequantised planes'."""
     z = normalize(field, cfg, x)
     if planes_q is None:
         planes_q = quantized_planes(field)
     planes = [p / gain(field, i) for i, p in enumerate(planes_q)]
-    out = torch.cat([tri.sample_triplane(p, z, apply_contract=False)
-                     for p in planes], -1)
+    out = tri.sample_triplanes(planes, z)
     profiling.backward_span("cat.field.bwd", out, planes)
     return out
 

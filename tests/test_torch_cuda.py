@@ -14,6 +14,8 @@ import torch
 import chip_smoke
 from gauspcc_tpu_torch.core.quant import ste_binary
 from gauspcc_tpu_torch.fields import hashgrid
+from gauspcc_tpu_torch.fields import triplane as tri
+from gauspcc_tpu_torch.models.cat3dgs import field as cfield
 from gauspcc_tpu_torch.render import raster, tile_blend
 from gauspcc_tpu_torch.utils import profiling
 
@@ -1137,3 +1139,93 @@ def test_traced_grid_backward_counts_k3_inside_its_span(cuda_device,
     by_name = {sp.name: sp.counters for sp in spans}
     assert by_name["backward"].get("grid_bwd_launches") == 4
     assert profiling.counters()["grid_bwd_launches"] == 4
+
+
+# the cat3dgs.train_rd cell's field: planes of one channel at 67, 134 and
+# 268 (282,807 pixels), read at a bucket of 262,144 rows whose last 102,154
+# (padding) all sit at the first anchor
+CAT_RESOLUTIONS, CAT_BUCKET, CAT_ANCHORS = (67, 134, 268), 262_144, 159_990
+
+
+def _cat_anchors(device, seed: int) -> torch.Tensor:
+    """[CAT_BUCKET, 3] anchors about the identity frame, the padding rows
+    at anchor 0."""
+    x = torch.randn((CAT_BUCKET, 3), generator=torch.Generator(
+        device=device).manual_seed(seed), device=device) * 1.5
+    x[CAT_ANCHORS:] = x[0]
+    return x
+
+
+@pytest.mark.cuda
+def test_table_grad_kernel_at_the_triplane_shape(cuda_device):
+    """K3 on the CAT cell's planes: 282,807 rows of one float, 36 taps a
+    point (3 scales, 3 planes, 4 taps), each of the padding rows' taps one
+    run of ~100k lookups into one pixel; within kernel_grad_tolerance of
+    the exact gradient, bit-identical over two calls, and that tolerance
+    sees one chunk of the longest run dropped."""
+    cfg = cfield.FieldConfig(base_resolution=CAT_RESOLUTIONS[0])
+    field = cfield.Field(cfg).to(cuda_device)
+    with torch.no_grad():
+        z = cfield.normalize(field, cfg, _cat_anchors(cuda_device, 0))
+    idx, inside, wx, wy = tri.triplane_taps(list(field.scales), z)
+    idx, w = idx.to(torch.int32), tri.tap_weights(inside, wx, wy)
+    rows = 3 * sum(r * r for r in CAT_RESOLUTIONS)
+    assert rows == 282_807 and tuple(idx.shape) == (CAT_BUCKET, 9, 4)
+    g = torch.randn((CAT_BUCKET, 9), generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    got, tol = _k3_against_plain(idx, w, g, rows)
+    counts = torch.bincount(idx.reshape(-1).long(), minlength=rows)
+    assert int(counts.max()) >= CAT_BUCKET - CAT_ANCHORS
+    assert bool((got[counts == 0] == 0).all())
+    n, excess = chip_smoke.dropped_chunk_excess(idx, w, g, rows, got, tol)
+    assert n == int(counts.max()) and excess > 0.0
+
+
+@pytest.mark.cuda
+def test_cat_field_step_launches_k3_once_inside_its_span(cuda_device):
+    """A CAT training sample at the cell's shape, forward and backward: one
+    K3 launch a step, counted as grid_bwd_launches in the span open around
+    the backward and inside the span cat.field.bwd; each scale's gradient
+    (gains 1, 2, 4 divide and multiply exactly) within kernel_grad_tolerance
+    of the exact one and the same bits in a second step."""
+    cfg = cfield.FieldConfig(base_resolution=CAT_RESOLUTIONS[0])
+    field = cfield.Field(cfg).init_seeded(np.random.default_rng(0)).to(
+        cuda_device)
+    x = _cat_anchors(cuda_device, 2)
+    g = torch.randn((CAT_BUCKET, 9), generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device)
+    grads = []
+    for traced in (False, True):
+        before = hashgrid.backward_launches
+        if traced:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]):
+                profiling.reset()
+                with profiling.span("step"):
+                    out = cfield.sample(field, cfg, x)
+                    with profiling.span("backward"):
+                        grads.append(torch.autograd.grad(out, list(field.scales), g))
+                torch.cuda.synchronize()
+        else:
+            out = cfield.sample(field, cfg, x)
+            grads.append(torch.autograd.grad(out, list(field.scales), g))
+            torch.cuda.synchronize()
+        assert hashgrid.backward_launches == before + 1
+    spans = profiling.spans()
+    bwd = [sp for sp in spans if sp.name == "cat.field.bwd"]
+    assert len(bwd) == 1 and bwd[0].device_ms > 0.0
+    assert {sp.name: sp.counters for sp in spans}["backward"].get(
+        "grid_bwd_launches") == 1
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    with torch.no_grad():
+        z = cfield.normalize(field, cfg, x)
+        planes = [p / cfield.gain(field, i)
+                  for i, p in enumerate(cfield.quantized_planes(field))]
+        idx, inside, wx, wy = tri.triplane_taps(planes, z)
+        idx, w = idx.to(torch.int32), tri.tap_weights(inside, wx, wy)
+    rows = 3 * sum(r * r for r in CAT_RESOLUTIONS)
+    exact = hashgrid.table_grad_reference(idx, w.double(), g.double(), rows)
+    tol = hashgrid.kernel_grad_tolerance(idx, w, g, rows)
+    got = tri.triplane_rows(list(grads[0])).double()
+    assert float(((got - exact).abs() - tol).max()) <= 0.0
